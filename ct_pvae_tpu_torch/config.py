@@ -170,14 +170,15 @@ class Config:
 
     @classmethod
     def load(cls, path: str) -> "Config":
+        """A JSON config (a run's ``config.json``).  YAML files, which the JAX
+        package reads with PyYAML, are not supported (ROADMAP Queue 1, item 6)."""
+        if path.endswith((".yaml", ".yml")):
+            raise NotImplementedError(
+                f"{path}: YAML configs are not ported (ROADMAP Queue 1, item 6); "
+                "pass a JSON config such as a run's config.json"
+            )
         with open(path) as f:
-            if path.endswith((".yaml", ".yml")):
-                import yaml
-
-                d = yaml.safe_load(f)
-            else:
-                d = json.load(f)
-        return cls.from_dict(d)
+            return cls.from_dict(json.load(f))
 
 
 # Recipe preset mirroring the reference's documented foam run (README.md:221).

@@ -3,14 +3,17 @@
 For each algorithm of the run, the mask-unnormalised sparse sinogram is
 reconstructed at detector resolution and centre-cropped; one more channel is
 the unfiltered backprojection of the mask itself (reference
-helper_functions.py:477-529).  The port carries the one-shot algorithms:
+helper_functions.py:477-529):
 
   gridrec -> FBP with the ramp filter
   fbp     -> FBP with the shepp-logan filter
+  sirt    -> 30 SIRT iterations  } on the static Joseph pair at detector
+  tv      -> 60 Chambolle-Pock   } resolution (kernels C and D), as the JAX
+                                   package's TPU route does (recon_init.py:144-153)
 
 With ``cheap_init`` (serving), sirt and tv become the ramp-FBP, keeping the
-channel count and order (recon_init.py:99-100).  The iterative sirt/tv run
-on kernels C and D, which are not ported yet.
+channel count and order (recon_init.py:99-100).  ``gridrec_fourier`` is not
+ported.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import numpy as np
 import torch
 
 from ..ops.fbp import fbp
+from ..ops.joseph_radon import backproject_static, radon_static
+from ..ops.sirt import sirt_with_ops
+from ..ops.tv import tv_with_ops
 
 _EPS = float(np.finfo(np.float32).eps)
 _FILTER = {"gridrec": "ramp", "fbp": "shepp-logan"}
@@ -40,14 +46,24 @@ def crop_center(img: np.ndarray, final_x: int, final_y: int):
 
 def _check_algorithms(algorithms: List[str]) -> None:
     for alg in algorithms:
-        if alg in ("sirt", "tv"):
-            raise NotImplementedError(
-                f"init algorithm {alg!r} runs the static-angle Joseph pair (kernels C "
-                "and D, ops/pallas_radon.py _fwd_kernel/_adj_kernel), not yet ported "
-                "(ROADMAP Queue 1, the full init stack); serve with cheap_init=True"
-            )
-        if alg not in _FILTER:
+        if alg not in _FILTER and alg not in ("sirt", "tv"):
             raise NotImplementedError(f"init algorithm {alg!r} is not ported")
+
+
+def _recon(alg: str, sino: torch.Tensor, theta_t: torch.Tensor, theta: tuple,
+           size: int) -> torch.Tensor:
+    if alg in _FILTER:
+        return fbp(sino, theta_t, size, size, _FILTER[alg])
+
+    def fwd(img):
+        return radon_static(img, theta, size)
+
+    def adj(s):
+        return backproject_static(s, theta, size, size)
+
+    if alg == "sirt":
+        return sirt_with_ops(sino, fwd, adj, size, size, num_iter=30)
+    return tv_with_ops(sino, fwd, adj, size, size, num_iter=60)
 
 
 def classical_recon_stack(
@@ -84,6 +100,7 @@ def classical_recon_stack(
     proj = torch.as_tensor(np.asarray(all_proj_samples, np.float32), device=device)
     masks = torch.as_tensor(np.asarray(all_masks, np.float32), device=device)
     theta_t = torch.as_tensor(np.asarray(theta, np.float32), device=device)
+    theta_f = tuple(float(t) for t in np.asarray(theta, np.float32))
     mask_expand = masks[:, :, None].expand(n, a, p)
     measured = mask_expand > _EPS
     unnorm = torch.where(measured, proj / torch.where(measured, mask_expand, 1.0), proj)
@@ -93,7 +110,7 @@ def classical_recon_stack(
     outs = []
     for i in range(0, n, batch):
         sino_b, mask_b = unnorm[i : i + batch], mask_expand[i : i + batch]
-        chans = [fbp(sino_b, theta_t, size, size, _FILTER[alg]) for alg in algorithms]
+        chans = [_recon(alg, sino_b.contiguous(), theta_t, theta_f, size) for alg in algorithms]
         chans.append(fbp(mask_b, theta_t, size, size, "none"))
         outs.append(torch.stack(chans, dim=1).cpu().numpy())  # (B, C, size, size)
     stack = crop_center(np.concatenate(outs, axis=0), x_size, y_size)

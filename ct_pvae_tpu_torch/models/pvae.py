@@ -21,7 +21,7 @@ What the carry-over has to get right:
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,7 +161,8 @@ def latent_shapes(x_size: int, y_size: int, in_channels: int, cfg) -> List[Tuple
 
 
 def build_models(x_size: int, y_size: int, in_channels: int, cfg):
-    """(encoder, decoder, skip_shapes) from a Config, in eval mode."""
+    """(encoder, decoder, skip_shapes) from a Config, in eval mode (the port
+    has no dropout or norm layer, so train and eval mode compute the same)."""
     if cfg.compute_dtype != "float32" or (cfg.conv_impl or "direct") != "direct":
         raise NotImplementedError(
             "the port implements the float32 'direct' conv path only "
@@ -169,6 +170,8 @@ def build_models(x_size: int, y_size: int, in_channels: int, cfg):
         )
     if cfg.norm_type:
         raise NotImplementedError("norm_type='instance' is not ported yet")
+    if cfg.dropout_prob > 0:
+        raise NotImplementedError("dropout (dropout_prob > 0) is not ported yet")
     fmm = cfg.feature_maps_multiplier
     feats = [f * fmm for f in cfg.feature_map_counts()]
     shapes = latent_shapes(x_size, y_size, in_channels, cfg)
@@ -209,3 +212,59 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         out[f"blocks.{i}.weight"] = torch.from_numpy(w.astype(np.float32))
         out[f"blocks.{i}.bias"] = torch.from_numpy(bias.astype(np.float32))
     return out
+
+
+def _branch_names(block: ConvBlock) -> Tuple[str, str]:
+    base = "ConvTranspose" if block.transpose else "Conv"
+    return f"{base}_0", f"{base}_1"
+
+
+def branch_halves(block: ConvBlock, name: str, tensor: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Views of ``tensor`` (a block's ``weight`` or ``bias``, or a tensor of
+    that shape) split into the two maxout branches, the flax leaves
+    ``Conv_0``/``Conv_1`` (``ConvTranspose_0``/``_1``)."""
+    dim = 1 if name == "weight" and block.transpose else 0
+    return torch.split(tensor, block.features, dim=dim)
+
+
+def params_to_flax(model: nn.Module, tensors: Optional[Mapping[str, torch.Tensor]] = None) -> Dict:
+    """The inverse of ``params_from_flax``: ``model``'s ``state_dict`` (or
+    ``tensors`` keyed the same way, such as Adam moments) as a flax tree of
+    float32 numpy arrays, the maxout branches split and the transpose-conv
+    kernels un-flipped to flax's HWIO layout."""
+    tensors = model.state_dict() if tensors is None else tensors
+    tree: Dict[str, Dict] = {}
+    for i, block in enumerate(model.blocks):
+        leaves = {}
+        halves_w = branch_halves(block, "weight", tensors[f"blocks.{i}.weight"].detach().cpu())
+        halves_b = branch_halves(block, "bias", tensors[f"blocks.{i}.bias"].detach().cpu())
+        for branch, w, b in zip(_branch_names(block), halves_w, halves_b):
+            w = w.numpy()
+            if block.transpose:
+                kern = w.transpose(2, 3, 0, 1)[::-1, ::-1]  # (I, F, kh, kw) flipped -> HWIO
+            else:
+                kern = w.transpose(2, 3, 1, 0)              # (F, I, kh, kw) -> HWIO
+            leaves[branch] = {"bias": np.ascontiguousarray(b.numpy(), np.float32),
+                              "kernel": np.ascontiguousarray(kern, np.float32)}
+        tree[f"ConvBlock_{i}"] = leaves
+    return tree
+
+
+def init_params(model: nn.Module, generator: torch.Generator) -> None:
+    """Fill ``model`` as flax initialises it: every branch kernel glorot-uniform
+    over the fans of its HWIO shape (kh * kw * I in, kh * kw * F out), every
+    bias zero.  The same distribution as the JAX package, not the same draws."""
+    tree = {}
+    for i, block in enumerate(model.blocks):
+        w = block.weight
+        in_ch = w.shape[0] if block.transpose else w.shape[1]
+        k, f = block.kernel, block.features
+        limit = float(np.sqrt(6.0 / (k * k * in_ch + k * k * f)))
+        tree[f"ConvBlock_{i}"] = {
+            branch: {
+                "kernel": ((torch.rand((k, k, in_ch, f), generator=generator) * 2 - 1) * limit).numpy(),
+                "bias": np.zeros(f, np.float32),
+            }
+            for branch in _branch_names(block)
+        }
+    model.load_state_dict(params_from_flax(tree))

@@ -1,4 +1,4 @@
-"""Pure-Python reader of flax msgpack checkpoints.
+"""Pure-Python reader and writer of flax msgpack checkpoints.
 
 The JAX package saves its ``TrainState`` with ``flax.serialization.to_bytes``
 (vi/train.py:634-656): a msgpack map whose array leaves are msgpack ext
@@ -7,11 +7,16 @@ triple.  This module decodes that subset of msgpack (maps, arrays, str, bin,
 int, float, bool, nil, ext type 1) into dicts, lists and numpy arrays, so the
 port reads such checkpoints without flax or msgpack: the counterpart of
 ``flax.serialization.msgpack_restore`` as ``Trainer.restore`` uses it
-(train.py:686).  Anything else raises.
+(train.py:686).  Anything else raises.  ``msgpack_serialize`` writes such a
+tree back the way ``flax.serialization.msgpack_serialize`` does (the
+encoding msgpack-python picks for each value, insertion-ordered maps, every
+array as an ext-1 leaf), so the JAX package's ``Trainer.restore`` reads a
+checkpoint the port wrote.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, Tuple
 
@@ -118,3 +123,93 @@ def msgpack_restore(data: bytes) -> Any:
 def load_checkpoint(path: str) -> Any:
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+def _pack_len(out: bytearray, n: int, fix: int, fix_max: int, tags: Tuple[int, ...]) -> None:
+    """Header of a str/bin/array/map: fix form up to ``fix_max``, then 8/16/32-bit lengths."""
+    if fix and n <= fix_max:
+        out.append(fix | n)
+        return
+    for tag, fmt, limit in zip(tags, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if tag is not None and n <= limit:
+            out.append(tag)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack object of length {n} too large")
+
+
+def _pack_int(out: bytearray, x: int) -> None:
+    if 0 <= x <= 0x7F or -32 <= x < 0:
+        out += struct.pack(">b" if x < 0 else ">B", x)
+        return
+    forms = ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF), (0xCE, ">I", 0, 0xFFFFFFFF),
+             (0xCF, ">Q", 0, 2**64 - 1)) if x >= 0 else (
+             (0xD0, ">b", -(2**7), 0), (0xD1, ">h", -(2**15), 0), (0xD2, ">i", -(2**31), 0),
+             (0xD3, ">q", -(2**63), 0))
+    for tag, fmt, lo, hi in forms:
+        if lo <= x <= hi:
+            out.append(tag)
+            out += struct.pack(fmt, x)
+            return
+    raise ValueError(f"integer {x} out of msgpack range")
+
+
+def _pack(out: bytearray, x: Any) -> None:
+    if x is None:
+        out.append(0xC0)
+    elif isinstance(x, bool):
+        out.append(0xC3 if x else 0xC2)
+    elif isinstance(x, int):
+        _pack_int(out, x)
+    elif isinstance(x, float):
+        out.append(0xCB)
+        out += struct.pack(">d", x)
+    elif isinstance(x, str):
+        raw = x.encode("utf-8")
+        _pack_len(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(x, (bytes, bytearray)):
+        _pack_len(out, len(x), 0, 0, (0xC4, 0xC5, 0xC6))
+        out += x
+    elif isinstance(x, (list, tuple)):
+        _pack_len(out, len(x), 0x90, 15, (None, 0xDC, 0xDD))
+        for v in x:
+            _pack(out, v)
+    elif isinstance(x, dict):
+        _pack_len(out, len(x), 0x80, 15, (None, 0xDE, 0xDF))
+        for k, v in x.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(x, np.ndarray):
+        if x.nbytes > 2**30:
+            raise ValueError("chunked flax arrays (> 1 GiB leaves) are not supported")
+        inner = bytearray()
+        _pack(inner, [[int(d) for d in x.shape], x.dtype.name, np.ascontiguousarray(x).tobytes()])
+        n = len(inner)
+        if n in (1, 2, 4, 8, 16):  # fixext
+            out.append(0xD4 + n.bit_length() - 1)
+        else:
+            _pack_len(out, n, 0, 0, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", _EXT_NDARRAY)
+        out += inner
+    else:
+        raise TypeError(f"cannot serialise {type(x).__name__} as flax msgpack")
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Encode a tree of dicts, lists and numpy arrays as flax msgpack bytes."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
+
+
+def save_checkpoint(path: str, tree: Any) -> None:
+    """Write ``tree`` to ``path`` atomically: a temp file, fsync, then rename,
+    so a process killed mid-write never leaves a truncated checkpoint
+    (train.py:634-653)."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack_serialize(tree))
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)

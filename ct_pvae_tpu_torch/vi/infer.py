@@ -30,8 +30,7 @@ import torch
 from ..config import Config
 from ..data import io as data_io
 from ..device import DeviceLike, exact_f32, resolve_device
-from ..prob.distributions import EPS
-from .loss import Draws
+from .loss import Draws, standard_draws
 from .serve import Server
 
 # sampler(batch_index, pass_index, latent_shapes, output_shape, num_samples) -> Draws
@@ -47,14 +46,7 @@ class TorchSampler:
         self.gen = torch.Generator(device=device).manual_seed(seed)
 
     def __call__(self, batch_index, pass_index, latent_shapes, out_shape, num_samples) -> Draws:
-        eps, u = [], []
-        for _ in range(num_samples):
-            eps.append([
-                torch.randn(s, generator=self.gen, device=self.device) for s in latent_shapes
-            ])
-            uni = torch.rand(out_shape, generator=self.gen, device=self.device)
-            u.append(EPS + (1.0 - 2.0 * EPS) * uni)
-        return Draws(eps, u)
+        return standard_draws(self.gen, latent_shapes, out_shape, num_samples, self.device)
 
 
 def amortized_infer(

@@ -1,4 +1,4 @@
-"""Physics-informed ELBO, eval branch (port of ``ct_pvae_tpu/vi/loss.py``).
+"""Physics-informed ELBO (port of ``ct_pvae_tpu/vi/loss.py`` ``elbo_loss``).
 
 The chain M --encode--> q(z|M) --sample/decode--> p(R|z) --project--> p(M|R)
 with the reference's quirks kept: the 1/300 encoder-input scale, a Normal q
@@ -7,7 +7,9 @@ TruncatedNormal(0, 1e10) per-pixel output, the negative-entropy term (the
 output's log-prob of its own sample), the Gaussian approximation of the
 Poisson likelihood, KL over levels 1..num_blocks and the /1e5 loss scale
 (loss.py:53-227).  The S ELBO samples go through the projector as one merged
-S*B batch.
+S*B batch.  In training the likelihood runs on a subset of the angles
+(``angles_i``, loss.py:124-129) and the posterior mean is not formed
+(``recon_mean`` is the samples' mean, loss.py:170-172).
 
 Random draws come in as tensors (``Draws``) so the tests can hand the port
 the JAX package's draws.
@@ -15,7 +17,7 @@ the JAX package's draws.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,6 +27,17 @@ from ..prob.distributions import EPS, Normal, TruncatedNormal, kl_normal_normal,
 class Draws(NamedTuple):
     eps: List[List[torch.Tensor]]  # [sample][level]: standard normal, NHWC latent shape
     u: List[torch.Tensor]          # [sample]: uniform on [EPS, 1-EPS), (B, x, y, 1)
+
+
+def standard_draws(gen: torch.Generator, latent_shapes: Sequence[Tuple[int, ...]],
+                   out_shape: Tuple[int, ...], num_samples: int, device: torch.device) -> Draws:
+    """Per sample: a standard normal of each latent shape, then a uniform on
+    [EPS, 1-EPS) of the output shape, drawn from ``gen`` on ``device``."""
+    eps, u = [], []
+    for _ in range(num_samples):
+        eps.append([torch.randn(s, generator=gen, device=device) for s in latent_shapes])
+        u.append(EPS + (1.0 - 2.0 * EPS) * torch.rand(out_shape, generator=gen, device=device))
+    return Draws(eps, u)
 
 
 class ElboAux(NamedTuple):
@@ -49,7 +62,7 @@ def physics_log_likelihood(
     return Normal(proj_masked, scale).log_prob(proj_sample)
 
 
-def elbo_eval(
+def elbo_loss(
     encoder: torch.nn.Module,
     decoder: torch.nn.Module,
     input_encode: torch.Tensor,   # (B, x, y, C)
@@ -57,15 +70,23 @@ def elbo_eval(
     proj_sample: torch.Tensor,    # (B, A, P)
     draws: Draws,
     *,
-    project_fn: Callable[[torch.Tensor], torch.Tensor],  # (S*B, x, y) -> (S*B, A, P)
+    project_fn: Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor],
+    angles_i: Optional[torch.Tensor] = None,  # (A_sub,) indices, None for all angles
     kl_anneal: float,
     kl_multiplier: float,
     pnm: torch.Tensor,
     num_blocks: int,
     input_encode_scale: float = 300.0,
     loss_scale: float = 1e5,
+    training: bool = False,
 ):
-    """(loss, ElboAux) of ``elbo_loss(..., training=False)`` for Normal latents."""
+    """(loss, ElboAux) of ``elbo_loss`` for Normal latents.
+
+    ``project_fn(recon, angles_i)`` maps (S*B, x, y) to (S*B, A_sub, P).
+    """
+    if angles_i is not None:
+        mask = mask.index_select(1, angles_i)
+        proj_sample = proj_sample.index_select(1, angles_i)
     skips = encoder(input_encode / input_encode_scale)
     qs = []
     for s in skips:
@@ -80,12 +101,12 @@ def elbo_eval(
         out_sample = out_dist.sample(u)
         lp_selfs.append(torch.sum(out_dist.log_prob(out_sample)))
         recons.append(out_sample[..., 0])
-        recon_means.append(out_dist.mean()[..., 0])
+        recon_means.append(recons[-1] if training else out_dist.mean()[..., 0])
 
     s = len(recons)
     merged = torch.cat(recons, dim=0)  # (S*B, x, y), sample-major
     lp_phys = physics_log_likelihood(
-        project_fn(merged), mask.repeat(s, 1), proj_sample.repeat(s, 1, 1), pnm
+        project_fn(merged, angles_i), mask.repeat(s, 1), proj_sample.repeat(s, 1, 1), pnm
     )
     lp_physs = lp_phys.reshape(s, -1).sum(dim=1)
     lps = lp_physs + torch.stack(lp_selfs)

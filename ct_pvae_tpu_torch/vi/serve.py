@@ -1,13 +1,13 @@
-"""Serving state: the eval half of the JAX package's ``vi/train.py`` Trainer.
+"""Serving state: the setup and eval half of the JAX package's ``vi/train.py`` Trainer.
 
-``Server`` does the Trainer's setup for a trained run (train.py:77-210):
-recon sizes, masks and measurements, the classical-init stack, the pnm
-anneal factor and the models built from the run's config; ``restore`` reads
-``params``, ``kl_anneal``, ``pnm`` and ``step`` from a flax msgpack
-checkpoint with the same "latest" rule (train.py:655-690); ``eval_step`` is
-the eval branch of the step (train.py:233-402, ``training=False``) with the
-fused Joseph projector over all angles.  Training, Adam and the backward
-pass are not ported yet.
+``Server`` does the Trainer's setup (train.py:77-210): recon sizes, masks
+and measurements, the classical-init stack, the pnm anneal factor and the
+models built from the run's config; ``restore`` reads ``params``,
+``kl_anneal``, ``pnm`` and ``step`` from a flax msgpack checkpoint with the
+same "latest" rule (train.py:655-690); ``eval_step`` is the eval branch of
+the step (train.py:233-402, ``training=False``) with the fused Joseph
+projector over all angles.  ``vi/train.py`` ``Trainer`` extends it with the
+train step, Adam and the loop.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from ..models.pvae import build_models, params_from_flax
 from ..ops.joseph_radon import angle_table_fused, radon_fused
 from ..ops.radon import pad_phantom
 from ..utils.flax_msgpack import load_checkpoint
-from .loss import Draws, ElboAux, elbo_eval
+from .loss import Draws, ElboAux, elbo_loss
 
 
 def latest_checkpoint(run_path: str, ckpt_num: Optional[int] = None) -> str:
@@ -51,6 +51,7 @@ class Server:
         self.cfg, self.device = cfg, device
         sinograms = np.clip(np.asarray(sinograms, np.float32)[: cfg.truncate_dataset], 0, None)
         self.theta = np.asarray(theta, np.float32)
+        self.num_examples = len(sinograms)
         self.num_angles = len(self.theta)
         self.n_det = sinograms.shape[-1]
         if cfg.no_pad:
@@ -61,6 +62,9 @@ class Server:
             os.makedirs(cfg.save_path, exist_ok=True)
             cfg.save(os.path.join(cfg.save_path, "config.json"))
 
+        # an evaluation-only run (train False) reads the run's artifacts, as the
+        # JAX package's create_all_masks / classical_recon_stack do
+        reuse = cfg.reuse_cache or not cfg.train
         masks, proj = create_all_masks(
             sinograms, self.num_angles, device,
             save_path=cfg.save_path,
@@ -71,11 +75,11 @@ class Server:
             truncate_dataset=cfg.truncate_dataset,
             toy_masks=cfg.toy_masks,
             seed=cfg.seed,
-            reuse_cache=cfg.reuse_cache,
+            reuse_cache=reuse,
         )
         stack = classical_recon_stack(
             proj, masks, self.theta, cfg.algorithms, self.x_size, self.y_size, device,
-            save_path=cfg.save_path, reuse_cache=cfg.reuse_cache, cheap_init=cfg.cheap_init,
+            save_path=cfg.save_path, reuse_cache=reuse, cheap_init=cfg.cheap_init,
         )
         self.data = {
             "proj_sample": torch.as_tensor(proj, device=device),
@@ -112,27 +116,33 @@ class Server:
     def restore(self, run_path: str, ckpt_num: Optional[int] = None) -> str:
         """Load params and anneal state from a trained run's checkpoint."""
         path = latest_checkpoint(run_path, ckpt_num)
-        ckpt = load_checkpoint(path)
+        self.load_state(load_checkpoint(path))
+        return path
+
+    def load_state(self, ckpt: dict) -> None:
+        """Params and anneal state from a decoded flax ``TrainState``."""
         self.encoder.load_state_dict(params_from_flax(ckpt["params"]["encoder"]))
         self.decoder.load_state_dict(params_from_flax(ckpt["params"]["decoder"]))
         self.kl_anneal = float(ckpt["kl_anneal"])
         self.pnm = float(ckpt["pnm"])
         self.step = int(ckpt["step"])
-        return path
 
     def annealed_pnm(self) -> torch.Tensor:
-        """pnm * factor^min(step, num_iter) in float32, as train.py:341-353."""
-        f32 = dict(dtype=torch.float32, device=self.device)
+        """pnm * factor^min(step, num_iter) in float32, as train.py:341-353; a
+        0-d CPU tensor, which device ops take as a scalar without a copy."""
+        f32 = dict(dtype=torch.float32)
         power = torch.tensor(self.pnm_anneal_factor, **f32) ** torch.tensor(
             float(min(self.step, self.cfg.num_iter)), **f32
         )
         return torch.tensor(self.pnm, **f32) * power
 
-    def project(self, recon: torch.Tensor) -> torch.Tensor:
-        """(B, x, y) -> (B, A, n_det) over all angles, through the fused projector."""
+    def project(self, recon: torch.Tensor, angles_i: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, x, y) -> (B, A_sub, n_det) through the fused projector, over the
+        angles ``angles_i`` (all angles when None); differentiable."""
         if not self.skip_pad and not self.cfg.no_pad:
             recon = pad_phantom(recon, self.n_det)
-        return radon_fused(recon.contiguous(), self.table, self.n_det)
+        table = self.table if angles_i is None else self.table.index_select(0, angles_i)
+        return radon_fused(recon.contiguous(), table, self.n_det)
 
     def draw_shapes(self, batch: int) -> Tuple[List[Tuple[int, ...]], Tuple[int, ...]]:
         """NHWC shapes of the latent draws per level and of the output draw."""
@@ -144,7 +154,7 @@ class Server:
         """Eval-mode ELBO of the examples ``batch_idx`` (all angles)."""
         cfg = self.cfg
         batch = {k: v.index_select(0, batch_idx) for k, v in self.data.items()}
-        return elbo_eval(
+        return elbo_loss(
             self.encoder, self.decoder,
             batch["input_encode"], batch["mask"], batch["proj_sample"], draws,
             project_fn=self.project,

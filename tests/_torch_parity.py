@@ -2,7 +2,12 @@
 
 The JAX package is the reference; both sides get the same numpy inputs.  The
 JAX package's random draws are replayed into the port as tensors: ``jax_draws``
-walks the key tree of ``ct_pvae_tpu/vi/loss.py:elbo_loss`` (training=False).
+walks the key tree of ``ct_pvae_tpu/vi/loss.py:elbo_loss``.
+
+Importing this module limits torch to one CPU thread.  The suite runs in
+several worker processes at once; torch's default of one thread per core in
+each of them starved the others (tests/test_multihost.py's two-process gloo
+start-up timed out at 30 s when the port's tests ran beside it).
 """
 
 import jax
@@ -12,6 +17,8 @@ import torch
 
 from ct_pvae_tpu_torch.prob.distributions import EPS
 from ct_pvae_tpu_torch.vi.loss import Draws
+
+torch.set_num_threads(1)
 
 
 def jax_draws(key, latent_shapes, out_shape, num_samples) -> Draws:
@@ -45,3 +52,23 @@ class JaxReplaySampler:
 
     def __call__(self, batch_index, pass_index, latent_shapes, out_shape, num_samples):
         return jax_draws(self.keys[(batch_index, pass_index)], latent_shapes, out_shape, num_samples)
+
+
+class JaxTrainSampler:
+    """Port trainer sampler that replays the JAX Trainer's draws
+    (vi/train.py): step s uses fold_in(loop_key, s), loop_key being the third
+    split of PRNGKey(seed); eval batch i of final_evaluation uses the i-th
+    split of PRNGKey(seed + 3)."""
+
+    def __init__(self, seed: int):
+        self.loop_key = jax.random.split(jax.random.PRNGKey(seed), 3)[2]
+        self.eval_seed = seed + 3
+
+    def __call__(self, kind, index, latent_shapes, out_shape, num_samples):
+        if kind == "train":
+            key = jax.random.fold_in(self.loop_key, index)
+        else:
+            k = jax.random.PRNGKey(self.eval_seed)
+            for _ in range(index + 1):
+                k, key = jax.random.split(k)
+        return jax_draws(key, latent_shapes, out_shape, num_samples)

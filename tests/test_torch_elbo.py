@@ -15,7 +15,7 @@ from ct_pvae_tpu.vi.loss import elbo_loss
 from ct_pvae_tpu_torch.config import Config
 from ct_pvae_tpu_torch.models.pvae import build_models, params_from_flax
 from ct_pvae_tpu_torch.ops.joseph_radon import radon_fused
-from ct_pvae_tpu_torch.vi.loss import elbo_eval
+from ct_pvae_tpu_torch.vi.loss import elbo_loss as torch_elbo_loss
 
 HW, N_DET, B, C = 32, 48, 2, 3
 
@@ -63,9 +63,9 @@ def test_eval_elbo_matches_jax():
     draws = jax_draws(key, latent_shapes, (B, HW, HW, 1), 2)
     tab_t = torch.from_numpy(table)
     with torch.no_grad():
-        loss_t, aux_t = elbo_eval(
+        loss_t, aux_t = torch_elbo_loss(
             enc, dec, torch.from_numpy(inputs), torch.from_numpy(mask), torch.from_numpy(proj),
-            draws, project_fn=lambda r: radon_fused(r, tab_t, N_DET), kl_anneal=kl_anneal,
+            draws, project_fn=lambda r, ai: radon_fused(r, tab_t, N_DET), kl_anneal=kl_anneal,
             kl_multiplier=1.0, pnm=torch.tensor(pnm, dtype=torch.float32), num_blocks=2,
         )
 

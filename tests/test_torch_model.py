@@ -19,7 +19,7 @@ from ct_pvae_tpu_torch.data.masks import make_masks
 from ct_pvae_tpu_torch.data.recon_init import classical_recon_stack
 from ct_pvae_tpu_torch.models.pvae import build_models, params_from_flax
 from ct_pvae_tpu_torch.prob import distributions as td
-from ct_pvae_tpu_torch.utils.flax_msgpack import load_checkpoint, msgpack_restore
+from ct_pvae_tpu_torch.utils.flax_msgpack import load_checkpoint, msgpack_restore, msgpack_serialize
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R4 = os.path.join(REPO, "results", "foam_paper_run_r4")
@@ -55,6 +55,19 @@ def test_msgpack_reader_round_trip_and_rejects_unknown_ext():
         k: tree[k] for k in ("s", "n", "t", "i", "big", "f", "l")}
     with pytest.raises(ValueError, match="ext type 2"):
         msgpack_restore(serialization.msgpack_serialize({"z": 1 + 2j}))
+
+
+def test_msgpack_writer_matches_flax():
+    """The port's writer gives flax's bytes for a tree of every kind it
+    writes (flax orders map keys, as jax pytrees do), and re-encodes the r4
+    checkpoint bitwise."""
+    tree = {"a": np.arange(6, dtype=np.int32).reshape(2, 3), "b": {"c": np.ones(40, np.float32),
+            "e": {}}, "big": np.zeros(20000, np.float32), "f": 0.25, "i": -1000, "k": 300,
+            "n": None, "s": "x" * 40, "t": True, "z": np.ones((), np.float32)}
+    assert msgpack_serialize(tree) == serialization.msgpack_serialize(tree)
+    with open(CKPT, "rb") as f:
+        raw = f.read()
+    assert msgpack_serialize(msgpack_restore(raw)) == raw
 
 
 def test_distributions_match_jax():
