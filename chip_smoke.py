@@ -25,6 +25,18 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
                posterior-mean PSNR of the final evaluation, one train step
                (loss and every gradient) held against the port's CPU path,
                and a torch.profiler view of the step
+  6. gather  - ``cli train --config configs/toy.yaml`` on dataset_toy_discrete2
+               (64 sinograms, a 2-pixel detector), cut to 200 steps: the
+               gather projector's calls move and no Joseph kernel launches,
+               finite losses, one toy train step held against the CPU path
+               and a torch.profiler view of it
+  7. serve on the real init stack - ``cli infer`` without ``--cheap_init``
+               (sirt/tv through C and D) on phase 4's 100 sinograms with the
+               r4 weights; launch counts, set-up seconds, PSNR
+  8. kernel E - the probe ``python -m ct_pvae_tpu_torch.scripts.probe_conv_fused``
+               at its default shape (its lines and verdict; its launches of E
+               are E's count), then E against its plain version at the
+               probe's shape and a ragged one, E, plain and cuDNN times, bound
 
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; a line before them holds the per-kernel JSON.
@@ -52,6 +64,7 @@ N_SERVE = 100
 PASSES = 8
 N_TRAIN = 100            # examples the train phase restores onto
 TRAIN_STEPS = 100
+TOY_STEPS = 200          # the toy recipe's 100,000 steps, cut
 INIT_BATCH = 32          # classical_recon_stack's batch
 PSNR_FLOOR_DB = 15.0
 KERNEL_RTOL = 1e-5       # relative, plus KERNEL_ATOL_FRAC * max|plain|:
@@ -133,6 +146,34 @@ def csr(rows, cols, vals, shape):
         return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape).coalesce().to_sparse_csr()
 
 
+def compare(label, what: str, got, want) -> float:
+    """Raise unless ``got`` holds ``want`` to rtol KERNEL_RTOL + KERNEL_ATOL_FRAC
+    * max|want| and is finite; log and return the largest absolute error."""
+    import torch
+
+    err = (got - want).abs()
+    scale = float(want.abs().max())
+    max_abs = float(err.max())
+    bad = int((err > KERNEL_RTOL * want.abs() + KERNEL_ATOL_FRAC * scale).sum())
+    log(f"  {label}: {what} -> {tuple(got.shape)}; "
+        f"max abs err {max_abs:.3e}, max rel err {max_abs / scale:.3e} (of max {scale:.4g}); "
+        f"{bad} outside rtol {KERNEL_RTOL:g} + atol {KERNEL_ATOL_FRAC:g}*max")
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: kernel disagrees with its plain version")
+    return max_abs
+
+
+def bound(bytes_moved: int, ops: int):
+    """(bound ms, "bytes" or "operations", its log text): the larger of the
+    bytes over the memory rate and the float32 operations over their peak."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    text = (f"bound {max(bytes_ms, ops_ms):.5f} ms by {by} (bytes {bytes_moved} B -> "
+            f"{bytes_ms:.5f} ms at 3.35 TB/s; {ops} flops -> {ops_ms:.5f} ms at 67 TFLOP/s)")
+    return max(bytes_ms, ops_ms), by, text
+
+
 def check_kernel(label, kernel, plain, x, table, n, n_det, adjoint=False):
     """Kernel vs plain version on ``x``, times, bound, and the same function
     as one cuSPARSE product (the projector's CSR matrix, or its transpose
@@ -144,15 +185,7 @@ def check_kernel(label, kernel, plain, x, table, n, n_det, adjoint=False):
     got = kernel(x)
     want = plain(x)
     torch.cuda.synchronize()
-    err = (got - want).abs()
-    scale = float(want.abs().max())
-    max_abs = float(err.max())
-    bad = int((err > KERNEL_RTOL * want.abs() + KERNEL_ATOL_FRAC * scale).sum())
-    log(f"  {label}: {tuple(x.shape)} x {a} angles -> {tuple(got.shape)}; "
-        f"max abs err {max_abs:.3e}, max rel err {max_abs / scale:.3e} (of max {scale:.4g}); "
-        f"{bad} outside rtol {KERNEL_RTOL:g} + atol {KERNEL_ATOL_FRAC:g}*max")
-    if bad or not torch.isfinite(got).all():
-        raise AssertionError(f"{label}: kernel disagrees with its plain version")
+    max_abs = compare(label, f"{tuple(x.shape)} x {a} angles", got, want)
 
     ms = cuda_ms(lambda: kernel(x), 10, per_sample=20)
     plain_ms = cuda_ms(lambda: plain(x), 3)
@@ -170,14 +203,42 @@ def check_kernel(label, kernel, plain, x, table, n, n_det, adjoint=False):
     sino_numel = b * a * n_det
     bytes_moved = (x.numel() + table.numel() + got.numel()) * 4
     ops = 2 * taps + sino_numel  # a multiply-add per in-range tap, one weight scale per ray
-    bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
-    bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    bound_ms, bound_by, text = bound(bytes_moved, ops)
     log(f"  {label}: kernel {ms:.4f} ms (median of 10 x 20 queued launches), plain {plain_ms:.3f} ms, "
-        f"cuSPARSE csr@dense {library_ms:.4f} ms (max abs err {lib_err:.2e}); "
-        f"bound {bound_ms:.5f} ms by {bound_by} (bytes {bytes_moved} B -> {bound_bytes_ms:.5f} ms "
-        f"at 3.35 TB/s; {ops} flops -> {bound_ops_ms:.5f} ms at 67 TFLOP/s; {taps} taps)")
+        f"cuSPARSE csr@dense {library_ms:.4f} ms (max abs err {lib_err:.2e}); {text}; {taps} taps")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def check_conv_fused(label, x, kern, bias, timed: bool):
+    """Kernel E against its plain version on ``x``; with ``timed``, also the
+    kernel's, the plain version's and the cuDNN formulation's times and E's
+    bound; returns the kernel's record."""
+    import torch
+
+    from ct_pvae_tpu_torch.ops import conv_fused
+    from ct_pvae_tpu_torch.scripts.probe_conv_fused import f_cudnn
+
+    kernel = lambda: conv_fused.conv3x3_periodic_maxout(x, kern, bias)
+    plain = lambda: conv_fused.conv3x3_periodic_maxout_plain(x, kern, bias)
+    library = lambda: f_cudnn(x, kern, bias)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    max_abs = compare(label, f"{tuple(x.shape)} x {tuple(kern.shape)}", got, want)
+    if not timed:
+        return None
+    lib_err = float((library() - want).abs().max())
+    ms = cuda_ms(kernel, 10, per_sample=20)
+    plain_ms = cuda_ms(plain, 3)
+    library_ms = cuda_ms(library, 10, per_sample=5)
+    b, h, w, c = x.shape
+    f = kern.shape[-1] // 2
+    bytes_moved = (x.numel() + kern.numel() + bias.numel() + got.numel()) * 4
+    ops = 2 * b * h * w * 9 * c * 2 * f  # a multiply-add per tap, channel and output channel
+    bound_ms, bound_by, text = bound(bytes_moved, ops)
+    log(f"  {label}: kernel {ms:.4f} ms (median of 10 x 20 queued launches, "
+        f"{ops / ms / 1e9:.2f} TFLOP/s), plain (im2col + matmul) {plain_ms:.4f} ms, "
+        f"cuDNN formulation {library_ms:.4f} ms (max abs err {lib_err:.2e}); {text}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -207,7 +268,8 @@ def check_eval_step(cfg, sinos, theta, run_path, dev) -> None:
                            real_data=True)
     results, draws, srv_gpu = [], None, None
     for d in (dev, torch.device("cpu")):
-        srv = Server(eval_cfg, sinos, theta, d)
+        # the CPU server asks for the card's projector route (Joseph, plain versions)
+        srv = Server(eval_cfg, sinos, theta, d, kernel_route=True)
         srv.restore(run_path)
         if srv_gpu is None:
             srv_gpu = srv
@@ -255,11 +317,12 @@ def profile_eval_step(srv, draws, steps: int = 5) -> None:
             f"{100 * e.self_device_time_total / max(device_us, 1e-9):5.1f}%  x{e.count // steps}  {e.key[:90]}")
 
 
-def check_train_step(cfg, sinos, theta, run_path, dev):
-    """One train step of the restored r4 model on the card against the port's
-    CPU path, on the same params, batch, angles and draws: loss and every
-    gradient.  The CPU trainer reads the card's masks, measurements and init
-    stack from their cache files.  Returns the card's trainer."""
+def check_train_step(cfg, sinos, theta, run_path, dev, label="train"):
+    """One train step of a run's restored model on the card against the
+    port's CPU path, on the same params, batch, angles and draws: loss and
+    every gradient.  The CPU trainer reads the card's masks, measurements and
+    init stack from their cache files, and takes the card's projector route.
+    Returns the card's trainer."""
     import numpy as np
     import torch
 
@@ -268,7 +331,9 @@ def check_train_step(cfg, sinos, theta, run_path, dev):
     tcfg = cfg.replace(save_path=run_path, truncate_dataset=len(sinos), restore=True,
                        use_latest_ckpt=True, reuse_cache=True)
     gpu = Trainer(tcfg, sinos, theta, dev)
-    cpu = Trainer(tcfg, sinos, theta, torch.device("cpu"))
+    cpu = Trainer(tcfg, sinos, theta, torch.device("cpu"), kernel_route=True)
+    if gpu.joseph != cpu.joseph:
+        raise AssertionError("the CPU trainer took another projector route than the card's")
     rng = np.random.default_rng(0)
     bidx = rng.permutation(len(sinos))[: cfg.batch_size]
     aidx = rng.permutation(len(theta))[: cfg.angles_per_iter]
@@ -288,16 +353,16 @@ def check_train_step(cfg, sinos, theta, run_path, dev):
                    for k, a, b in zip(names, g_gpu, g_cpu)), reverse=True)
     whole = float(torch.cat([(a - b).flatten() for a, b in zip(g_gpu, g_cpu)]).norm()
                   / torch.cat([b.flatten() for b in g_cpu]).norm())
-    log(f"[train] one step GPU vs CPU: loss {l_gpu:.7g} vs {l_cpu:.7g} (rel {rel:.2e}, tolerance "
+    log(f"[{label}] one step GPU vs CPU: loss {l_gpu:.7g} vs {l_cpu:.7g} (rel {rel:.2e}, tolerance "
         f"{CPU_STEP_LOSS_RTOL:g}); gradient error norm / norm: all {len(g_gpu)} tensors together "
         f"{whole:.2e}, largest {', '.join(f'{k} {e:.2e}' for e, k in errs[:3])} "
         f"(tolerance {CPU_GRAD_RTOL:g} each)")
     if not (rel <= CPU_STEP_LOSS_RTOL and errs[0][0] <= CPU_GRAD_RTOL):
-        raise AssertionError("GPU train step disagrees with the CPU path")
+        raise AssertionError(f"{label}: GPU train step disagrees with the CPU path")
     return gpu, bidx, aidx
 
 
-def profile_train_step(tr, bidx, aidx, steps: int = 5) -> dict:
+def profile_train_step(tr, bidx, aidx, steps: int = 5, label: str = "train step") -> dict:
     """torch.profiler's device time by kernel over ``steps`` train steps,
     against their synchronised wall time."""
     import torch
@@ -329,7 +394,8 @@ def profile_train_step(tr, bidx, aidx, steps: int = 5) -> dict:
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in events)
-    log(f"[profile] train step (batch {cfg.batch_size}, {cfg.angles_per_iter} angles): "
+    log(f"[profile] {label} (batch {cfg.batch_size}, {cfg.angles_per_iter} angles, "
+        f"{cfg.num_samples} ELBO samples): "
         f"{plain_wall * 1e3:.3f} ms unprofiled; profiled wall {wall_us / steps / 1e3:.3f} ms, "
         f"device busy {device_us / steps / 1e3:.3f} ms ({100 * device_us / wall_us:.1f}% of wall)")
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
@@ -353,7 +419,8 @@ def main() -> int:
     from ct_pvae_tpu_torch.data.io import load_dataset
     from ct_pvae_tpu_torch.device import exact_f32
     from ct_pvae_tpu_torch.eval.metrics import mean_psnr
-    from ct_pvae_tpu_torch.ops import _cuda, joseph_radon
+    from ct_pvae_tpu_torch.ops import _cuda, conv_fused, joseph_radon, radon
+    from ct_pvae_tpu_torch.scripts import probe_conv_fused
 
     t_all = time.perf_counter()
     # -- 1. device -------------------------------------------------------
@@ -368,7 +435,7 @@ def main() -> int:
 
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("joseph_fwd", "joseph_adj")
+    sources = ("joseph_fwd", "joseph_adj", "conv_fused")
     _cuda.load_libraries(*sources)
     log(f"[build] {', '.join(f'{n}.cu' for n in sources)} built in parallel and loaded in "
         f"{time.perf_counter() - t0:.2f} s into {_cuda.BUILD_DIR}")
@@ -521,15 +588,104 @@ def main() -> int:
         trainer, bidx, aidx = check_train_step(cfg, sinos_all[: cfg.batch_size], theta, train_run, dev)
         profile_train_step(trainer, bidx, aidx)
 
+        # -- 6. gather route: the toy recipe -------------------------------
+        toy_yaml = os.path.join(REPO, "configs", "toy.yaml")
+        toy_data = os.path.join(REPO, "dataset_toy_discrete2")
+        toy_run = os.path.join(tmp, "toy_run")
+        toy_cfg = Config.load(toy_yaml)
+        toy_sinos, toy_theta, _ = load_dataset(toy_data)
+        for k in joseph_radon.LAUNCHES:
+            joseph_radon.LAUNCHES[k] = 0
+        radon.CALLS["radon"] = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--config", toy_yaml, "--input_path", toy_data,
+                       "--save_path", toy_run, "-i", str(TOY_STEPS)])
+        wall = time.perf_counter() - t0
+        toy_launches, gather_calls = dict(joseph_radon.LAUNCHES), radon.CALLS["radon"]
+        if rc != 0:
+            raise AssertionError(f"cli train (toy) returned {rc}")
+        expected_gather = TOY_STEPS + len(toy_sinos) // toy_cfg.batch_size  # + final evaluation
+        log(f"[gather] toy recipe (configs/toy.yaml, {len(toy_sinos)} sinograms, "
+            f"{len(toy_theta)} angles x {toy_sinos.shape[-1]} pixels, cut to {TOY_STEPS} of "
+            f"{toy_cfg.num_iter} steps): gather projector calls {gather_calls} (expected "
+            f"{expected_gather}: one per step and per final-evaluation batch), Joseph launches "
+            f"{toy_launches}")
+        if any(toy_launches.values()) or gather_calls != expected_gather:
+            raise AssertionError("the toy recipe did not take the gather route alone")
+        losses = np.load(os.path.join(toy_run, "train_loss_vec.npy"))
+        loss_final = np.load(os.path.join(toy_run, "loss_final.npy"))
+        if losses.shape != (TOY_STEPS,) or not np.isfinite(losses).all() \
+                or not np.isfinite(loss_final).all():
+            raise AssertionError(f"toy losses: shape {losses.shape} or non-finite values")
+        train_min = float(np.load(os.path.join(toy_run, "training_time.npy")))
+        log(f"[gather] {TOY_STEPS} steps in {wall:.2f} s (cli wall), {TOY_STEPS - 1} steps in "
+            f"{train_min * 60:.3f} s = {(TOY_STEPS - 1) / (train_min * 60):.2f} steps/s on {smi}; "
+            f"loss first {losses[0]:.6g}, last {losses[-1]:.6g}; final evaluation loss "
+            f"{loss_final.mean():.6g}")
+        toy_trainer, bidx, aidx = check_train_step(
+            toy_cfg, toy_sinos[: toy_cfg.batch_size], toy_theta, toy_run, dev, label="gather")
+        profile_train_step(toy_trainer, bidx, aidx, label="toy train step")
+
+        # -- 7. serve on the real init stack --------------------------------
+        for k in joseph_radon.LAUNCHES:
+            joseph_radon.LAUNCHES[k] = 0
+        real_dir = os.path.join(tmp, "out_real")
+        t0 = time.perf_counter()
+        rc = cli.main(["infer", "--run_path", run, "--input_path", data, "--output", real_dir,
+                       "--passes", str(PASSES)])
+        wall = time.perf_counter() - t0
+        real_launches = dict(joseph_radon.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"cli infer (real init stack) returned {rc}")
+        expected = {"joseph_fwd": -(-N_SERVE // cfg.batch_size) * PASSES, "joseph_adj": 0,
+                    "joseph_fwd_static": per_init_batch * -(-N_SERVE // INIT_BATCH),
+                    "joseph_adj_static": per_init_batch * -(-N_SERVE // INIT_BATCH)}
+        log(f"[serve-real] launches {real_launches} (expected {expected})")
+        if real_launches != expected:
+            raise AssertionError(f"real-stack serving launches {real_launches}, expected {expected}")
+        mean = np.load(os.path.join(real_dir, "reconstruction_mean.npy"))
+        loss = np.load(os.path.join(real_dir, "infer_loss.npy"))
+        with open(os.path.join(real_dir, "infer_timing.json")) as f:
+            timing = json.load(f)
+        if mean.shape != (N_SERVE, n, n, 1) or not np.isfinite(mean).all() \
+                or not np.isfinite(loss).all():
+            raise AssertionError(f"real-stack serving: shape {mean.shape} or non-finite values")
+        psnr_real = mean_psnr(truth, mean[..., 0])
+        steady = timing["batch_s"][1:]
+        log(f"[serve-real] {N_SERVE} examples x {PASSES} passes in {wall:.2f} s: set-up "
+            f"{timing['setup_s']:.3f} s (masks, Poisson draws, sirt/tv/fbp/gridrec stack, restore), "
+            f"steady {len(steady) * timing['batch_size'] / sum(steady):.1f} ex/s on {smi}; "
+            f"PSNR posterior mean {psnr_real:.3f} dB (cheap stack {psnr_mean:.3f} dB, after "
+            f"training {psnr_train:.3f} dB)")
+        if not psnr_real >= PSNR_FLOOR_DB:
+            raise AssertionError(f"posterior-mean PSNR {psnr_real:.2f} dB < {PSNR_FLOOR_DB} dB")
+
+    # -- 8. kernel E and its probe ---------------------------------------
+    conv_fused.LAUNCHES["conv_fused_maxout"] = 0
+    log("[probe] python -m ct_pvae_tpu_torch.scripts.probe_conv_fused (defaults)")
+    rc = probe_conv_fused.main([])
+    probe_launches = conv_fused.LAUNCHES["conv_fused_maxout"]
+    log(f"[probe] kernel E launches in the probe: {probe_launches}")
+    if rc != 0 or probe_launches == 0:
+        raise AssertionError(f"the probe returned {rc} with {probe_launches} launches of E")
+    x, kern, bias = probe_conv_fused.probe_inputs(10, 128, 40, 40, 3, dev)
+    records["conv_fused_maxout"] = check_conv_fused("E probe shape", x, kern, bias, timed=True)
+    x, kern, bias = probe_conv_fused.probe_inputs(3, 37, 11, 70, 3, dev)
+    check_conv_fused("E ragged", x[:, :, :35].contiguous(), kern, bias, timed=False)
+    log("[probe] ok")
+
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     meta = {
         "joseph_fwd": ("csrc/joseph_fwd.cu", "ct_pvae_tpu/ops/pallas_radon.py:455"),
         "joseph_adj": ("csrc/joseph_adj.cu", "ct_pvae_tpu/ops/pallas_radon.py:487"),
         "joseph_fwd_static": ("csrc/joseph_fwd.cu", "ct_pvae_tpu/ops/pallas_radon.py:124"),
         "joseph_adj_static": ("csrc/joseph_adj.cu", "ct_pvae_tpu/ops/pallas_radon.py:152"),
+        "conv_fused_maxout": ("csrc/conv_fused.cu", "scripts/probe_conv_fused.py:97"),
     }
+    # A-D: their launches on the train path (phase 5); E: on the probe (phase 8)
+    launches = {**train_launches, "conv_fused_maxout": probe_launches}
     kernels = [dict(name=name, route="cuda", source=f"ct_pvae_tpu_torch/{src}", replaces=tpu,
-                    launches=train_launches[name], **records[name])
+                    launches=launches[name], **records[name])
                for name, (src, tpu) in meta.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,11 +3,14 @@
 The JAX package beside it is the reference; every module here names its
 counterpart there and is held against it by ``tests/test_torch_*.py``.  This
 package imports torch, numpy and the standard library only, never JAX or the
-JAX package.  Importing it builds no kernel: the CUDA projector and its
-adjoint are compiled with ``nvcc`` on their first launch (``ops/_cuda.py``).
+JAX package.  Importing it builds no kernel: the CUDA projector, its
+adjoint and the fused conv kernel are compiled with ``nvcc`` on their first
+launch (``ops/_cuda.py``).
 
 Slice 1 covers amortized serving (``python -m ct_pvae_tpu_torch.cli infer``),
-slice 2 training (``python -m ct_pvae_tpu_torch.cli train``).
+slice 2 training (``python -m ct_pvae_tpu_torch.cli train``), slice 3 the
+gather-projector route with the toy recipe (``--config configs/toy.yaml``)
+and the fused conv probe (``python -m ct_pvae_tpu_torch.scripts.probe_conv_fused``).
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,8 @@
 
 ``train`` (cli.py:27-212) and ``infer`` (cli.py:252-298) take the JAX
 package's flags and dests, plus ``--device``; they run on the GPU unless
-``--device cpu`` is given.  ``--config`` takes a JSON file (a run's
-``config.json``).
+``--device cpu`` is given.  ``--config`` takes a run's ``config.json`` or a
+YAML recipe such as ``configs/toy.yaml``.
 """
 
 from __future__ import annotations
@@ -84,7 +84,11 @@ def _add_train_args(p: argparse.ArgumentParser, suppress: bool = False) -> None:
     a("--multihost", action="store_true", dest="multihost")
     a("--norm_type", dest="norm_type", default=None, choices=["instance"])
     a("--roll", action="store_true", dest="roll_augment")
-    a("--reuse_cache", action="store_true", dest="reuse_cache")
+    a("--reuse_cache", action="store_true", dest="reuse_cache",
+      help="reload all_masks / all_proj_samples / all_input_encode from --save_path. "
+           "An all_input_encode.npy that the JAX package wrote on the CPU comes from its "
+           "gather-pair sirt/tv route, about 30%% away from the TPU (Joseph) route the "
+           "port follows")
     a("--metrics_every", type=int, dest="metrics_every", default=50)
     a("--spc", type=int, dest="steps_per_call", default=8,
       help="JAX scan fusion; the port runs one step per call whatever the value")
@@ -93,7 +97,8 @@ def _add_train_args(p: argparse.ArgumentParser, suppress: bool = False) -> None:
       choices=["default", "high", "highest"])
     a("--conv_layout", dest="conv_layout", default="NHWC", choices=["NHWC", "NCHW"])
     a("--conv_impl", dest="conv_impl", default="direct", choices=["direct", "subpixel"])
-    a("--config", dest="config_file", default=None, help="JSON config file (a run's config.json)")
+    a("--config", dest="config_file", default=None, help="config file: a run's config.json or a YAML recipe (configs/*.yaml); "
+                           "typed flags override it")
     a("--device", dest="device", default="cuda", help="torch device (default: cuda)")
 
 

@@ -170,13 +170,13 @@ class Config:
 
     @classmethod
     def load(cls, path: str) -> "Config":
-        """A JSON config (a run's ``config.json``).  YAML files, which the JAX
-        package reads with PyYAML, are not supported (ROADMAP Queue 1, item 6)."""
+        """A JSON config (a run's ``config.json``) or a YAML one
+        (``configs/*.yaml``), read by ``utils/yaml_subset.py`` where the JAX
+        package uses PyYAML, then coerced by ``from_dict`` as there."""
         if path.endswith((".yaml", ".yml")):
-            raise NotImplementedError(
-                f"{path}: YAML configs are not ported (ROADMAP Queue 1, item 6); "
-                "pass a JSON config such as a run's config.json"
-            )
+            from .utils import yaml_subset
+
+            return cls.from_dict(yaml_subset.load(path))
         with open(path) as f:
             return cls.from_dict(json.load(f))
 

@@ -1,1 +1,1 @@
-"""Projectors and FBP (port of ``ct_pvae_tpu.ops``)."""
+"""Projectors, FBP and the fused conv kernel (port of ``ct_pvae_tpu.ops`` and kernel E)."""

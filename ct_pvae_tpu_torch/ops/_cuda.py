@@ -50,9 +50,16 @@ _JOSEPH_ARGS = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
+# (x, kern, bias, out, batch, h, w, c_in, f_out, stream)
+_CONV_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
+]
 _SIGNATURES = {
     "joseph_fwd": [("joseph_fwd", _JOSEPH_ARGS, ctypes.c_int)],
     "joseph_adj": [("joseph_adj", _JOSEPH_ARGS, ctypes.c_int)],
+    "conv_fused": [("conv_fused_maxout", _CONV_ARGS, ctypes.c_int)],
 }
 
 # table rows the adjoint kernel keeps in shared memory (kMaxRows in joseph_adj.cu)
@@ -146,3 +153,29 @@ def joseph_adj(sino: torch.Tensor, table: torch.Tensor, n: int) -> torch.Tensor:
         raise ValueError(f"the adjoint kernel takes at most {ADJ_MAX_ANGLES} angles, got {a}")
     out = torch.empty((b, n, n), dtype=torch.float32, device=sino.device)
     return _launch("joseph_adj", sino, table, out, n, n_det)
+
+
+# output channel pairs per block (kMaxPairs in conv_fused.cu)
+CONV_MAX_PAIRS = 64
+
+
+def conv_fused_maxout(x: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Launch kernel E on CUDA tensors: (B, H, W, C) x (3, 3, C, 2F) x (2F,) -> (B, H, W, F)."""
+    _check_cuda_f32(x=x, kern=kern, bias=bias)
+    b, h, w, c = x.shape
+    f = kern.shape[-1] // 2
+    if kern.shape != (3, 3, c, 2 * f) or f < 1 or bias.shape != (2 * f,):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} kern {tuple(kern.shape)} "
+                         f"bias {tuple(bias.shape)}")
+    z = b * -(-f // min(f, CONV_MAX_PAIRS))
+    if not (b > 0 and h > 0 and w > 0 and c > 0 and z <= 65535 and -(-h // 8) <= 65535):
+        raise ValueError(f"grid out of range: x {tuple(x.shape)}, F {f}")
+    out = torch.empty((b, h, w, f), dtype=torch.float32, device=x.device)
+    fn = load_libraries("conv_fused")["conv_fused"].conv_fused_maxout
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), kern.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c, f,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"conv_fused_maxout launch failed: cudaError {err}")
+    return out

@@ -1,21 +1,32 @@
-"""Projector geometry and the pixel-driven backprojector (port of ``ops/radon.py``).
+"""Projector geometry, the gather projector and the pixel-driven backprojector
+(port of ``ops/radon.py``).
 
 Geometry convention shared with ``fbp.py`` and the Joseph projector:
 
   * image f[x, y], centred coordinates X = x - (H-1)/2, Y = y - (W-1)/2
   * a point (X, Y) hits detector coordinate t_hat = Y cos(theta) - X sin(theta)
 
-Counterparts: ``num_proj_pixels`` and ``pad_phantom`` (radon.py:44-68) and the
-chunked pixel-driven ``backproject`` (radon.py:232-304).
+Counterparts: ``num_proj_pixels`` and ``pad_phantom`` (radon.py:44-68), the
+gather projector ``radon`` with ``_sample_grid`` and ``_bilinear_taps``
+(radon.py:71-159) and the chunked pixel-driven ``backproject``
+(radon.py:232-304).
+
+``radon`` is XLA code in the JAX package, not a Pallas kernel, so plain torch
+is its port: four bilinear gathers over a static (A, S, P) sample grid.
+Autograd differentiates it; the gathers' backward is torch's scatter-add, as
+JAX's transpose of ``take`` is.  ``CALLS`` counts its calls, so a run can
+show that it took the gather route rather than the Joseph kernels.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+CALLS = {"radon": 0}
 
 
 def num_proj_pixels(h: int, w: int) -> int:
@@ -33,6 +44,70 @@ def pad_phantom(phantom: torch.Tensor, n_det: Optional[int] = None) -> torch.Ten
         n_det = num_proj_pixels(h, w)
     padx, pady = n_det - h, n_det - w
     return F.pad(phantom, (pady // 2, pady - pady // 2, padx // 2, padx - padx // 2))
+
+
+def _sample_grid(theta: torch.Tensor, n_s: int, n_det: int, h: int,
+                 w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Array coordinates (x, y), each (A, n_s, n_det), of every ray step
+    (radon.py:71-86): unit steps s along u = (cos, sin), t_hat along
+    v = (-sin, cos), about the image centre."""
+    dev = theta.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    s = (torch.arange(n_s, **f32) - (n_s - 1) / 2.0)[None, :, None]
+    t_hat = (torch.arange(n_det, **f32) - (n_det - 1) / 2.0)[None, None, :]
+    cos = torch.cos(theta.float())[:, None, None]
+    sin = torch.sin(theta.float())[:, None, None]
+    x = s * cos - t_hat * sin + (h - 1) / 2.0
+    y = s * sin + t_hat * cos + (w - 1) / 2.0
+    return x, y
+
+
+def _bilinear_taps(x: torch.Tensor, y: torch.Tensor, h: int,
+                   w: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The 4 bilinear taps as (flat index into an (h, w) image, weight);
+    taps outside the image get weight 0 (radon.py:89-113)."""
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = x - x0, y - y0
+    taps = []
+    for dx, dy, wgt in (
+        (0, 0, (1 - wx) * (1 - wy)),
+        (1, 0, wx * (1 - wy)),
+        (0, 1, (1 - wx) * wy),
+        (1, 1, wx * wy),
+    ):
+        xi, yi = x0 + dx, y0 + dy
+        valid = (xi >= 0) & (xi <= h - 1) & (yi >= 0) & (yi <= w - 1)
+        flat = xi.clamp(0, h - 1).long() * w + yi.clamp(0, w - 1).long()
+        taps.append((flat, torch.where(valid, wgt, 0.0)))
+    return taps
+
+
+def radon(image: torch.Tensor, theta: torch.Tensor, *, pad: bool = False,
+          n_det: Optional[int] = None) -> torch.Tensor:
+    """Radon transform of (..., H, W) images at the (A,) angles ``theta``:
+    (..., A, n_det), with ``n_s = H`` unit ray steps (radon.py:116-159).
+
+    ``pad`` zero-pads the image to (n_det, n_det) first; ``n_det`` defaults
+    to H after the optional pad, which needs a square image.
+    """
+    if pad:
+        image = pad_phantom(image, n_det)
+    h, w = image.shape[-2], image.shape[-1]
+    if n_det is None:
+        if h != w:
+            raise ValueError("unpadded radon requires square images; use pad=True")
+        n_det = h
+    CALLS["radon"] += 1
+    theta = torch.as_tensor(theta, device=image.device)
+    a = theta.shape[0]
+    batch_shape = image.shape[:-2]
+    img_flat = image.reshape(-1, h * w)
+    n_s = h  # unit steps along the ray cover the (padded) image support
+    sino = 0.0
+    for flat, wgt in _bilinear_taps(*_sample_grid(theta, n_s, n_det, h, w), h, w):
+        vals = img_flat.index_select(1, flat.reshape(-1)).reshape(-1, a, n_s, n_det)
+        sino = sino + vals * wgt[None]
+    return sino.sum(dim=2).reshape(batch_shape + (a, n_det))
 
 
 def backproject(

@@ -6,8 +6,10 @@ per level with scale ``positive_range(log_scale) + EPS``, a
 TruncatedNormal(0, 1e10) per-pixel output, the negative-entropy term (the
 output's log-prob of its own sample), the Gaussian approximation of the
 Poisson likelihood, KL over levels 1..num_blocks and the /1e5 loss scale
-(loss.py:53-227).  The S ELBO samples go through the projector as one merged
-S*B batch.  In training the likelihood runs on a subset of the angles
+(loss.py:53-227).  The S ELBO samples go through the decoder and the
+projector as one merged, sample-major S*B batch: the counterpart of the JAX
+package's ``vmap`` over the samples, one decoder call where a Python loop
+would launch S.  In training the likelihood runs on a subset of the angles
 (``angles_i``, loss.py:124-129) and the posterior mean is not formed
 (``recon_mean`` is the samples' mean, loss.py:170-172).
 
@@ -93,23 +95,23 @@ def elbo_loss(
         loc, log_scale = torch.chunk(s, 2, dim=-1)
         qs.append(Normal(loc, positive_range(log_scale) + EPS))
 
-    lp_selfs, recons, recon_means = [], [], []
-    for eps, u in zip(draws.eps, draws.u):
-        latents = [q.sample(e) for q, e in zip(qs, eps)]
-        alpha, beta_p = decoder(latents)
-        out_dist = TruncatedNormal(positive_range(alpha), positive_range(beta_p), 0.0, 1e10)
-        out_sample = out_dist.sample(u)
-        lp_selfs.append(torch.sum(out_dist.log_prob(out_sample)))
-        recons.append(out_sample[..., 0])
-        recon_means.append(recons[-1] if training else out_dist.mean()[..., 0])
+    s, b = len(draws.eps), input_encode.shape[0]
+    # every level's S draws stacked sample-major: (S*B, ...)
+    latents = [Normal(q.loc.repeat(s, 1, 1, 1), q.scale.repeat(s, 1, 1, 1)).sample(
+        torch.cat([eps[level] for eps in draws.eps])) for level, q in enumerate(qs)]
+    alpha, beta_p = decoder(latents)
+    out_dist = TruncatedNormal(positive_range(alpha), positive_range(beta_p), 0.0, 1e10)
+    out_sample = out_dist.sample(torch.cat(draws.u))
+    lp_selfs = out_dist.log_prob(out_sample).reshape(s, -1).sum(dim=1)
+    merged = out_sample[..., 0]  # (S*B, x, y), sample-major
+    recons = merged.reshape((s, b) + merged.shape[1:])
+    recon_means = recons if training else out_dist.mean()[..., 0].reshape(recons.shape)
 
-    s = len(recons)
-    merged = torch.cat(recons, dim=0)  # (S*B, x, y), sample-major
     lp_phys = physics_log_likelihood(
         project_fn(merged, angles_i), mask.repeat(s, 1), proj_sample.repeat(s, 1, 1), pnm
     )
     lp_physs = lp_phys.reshape(s, -1).sum(dim=1)
-    lps = lp_physs + torch.stack(lp_selfs)
+    lps = lp_physs + lp_selfs
     loglik = lps.mean()
 
     prior = lambda q: Normal(torch.zeros_like(q.loc), torch.ones_like(q.scale))
@@ -124,5 +126,5 @@ def elbo_loss(
         log_prob_M_given_R=lp_physs[-1],
         log_prob_R_given_z=lp_selfs[-1],
         recon_sample=recons[-1],
-        recon_mean=torch.stack(recon_means).mean(dim=0),
+        recon_mean=recon_means.mean(dim=0),
     )

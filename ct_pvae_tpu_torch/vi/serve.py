@@ -5,9 +5,16 @@ and measurements, the classical-init stack, the pnm anneal factor and the
 models built from the run's config; ``restore`` reads ``params``,
 ``kl_anneal``, ``pnm`` and ``step`` from a flax msgpack checkpoint with the
 same "latest" rule (train.py:655-690); ``eval_step`` is the eval branch of
-the step (train.py:233-402, ``training=False``) with the fused Joseph
-projector over all angles.  ``vi/train.py`` ``Trainer`` extends it with the
-train step, Adam and the loop.
+the step (train.py:233-402, ``training=False``) over all angles.
+``vi/train.py`` ``Trainer`` extends it with the train step, Adam and the loop.
+
+The projector is routed as the JAX Trainer routes it (train.py:249-256):
+the fused Joseph kernels (A forward, B backward) when ``use_pallas`` is set,
+the detector has at least 64 pixels and the device is CUDA (the TPU's
+counterpart) or the caller asks for the kernel route (``kernel_route``, the
+counterpart of the JAX Trainer's mesh, which the parity tests give it);
+otherwise the gather projector ``ops/radon.py`` ``radon`` on the drawn angle
+subset (loss.py:70-71), another discretisation.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from ..data.masks import create_all_masks
 from ..data.recon_init import classical_recon_stack
 from ..models.pvae import build_models, params_from_flax
 from ..ops.joseph_radon import angle_table_fused, radon_fused
-from ..ops.radon import pad_phantom
+from ..ops.radon import pad_phantom, radon
 from ..utils.flax_msgpack import load_checkpoint
 from .loss import Draws, ElboAux, elbo_loss
 
@@ -42,10 +49,20 @@ def latest_checkpoint(run_path: str, ckpt_num: Optional[int] = None) -> str:
     return os.path.join(ckpt_dir, cands[-1])
 
 
-class Server:
-    """Data, models and the eval step of a trained run, on one device."""
+def joseph_route(cfg: Config, n_det: int, device: torch.device, kernel_route: bool = False) -> bool:
+    """Whether the likelihood projects with the Joseph kernels (train.py:254-256)."""
+    return bool(cfg.use_pallas and n_det >= 64 and (device.type == "cuda" or kernel_route))
 
-    def __init__(self, cfg: Config, sinograms: np.ndarray, theta: np.ndarray, device: torch.device):
+
+class Server:
+    """Data, models and the eval step of a trained run, on one device.
+
+    ``kernel_route`` asks for the Joseph kernels where the device alone would
+    not select them (``joseph_route``): the port's plain versions on the CPU.
+    """
+
+    def __init__(self, cfg: Config, sinograms: np.ndarray, theta: np.ndarray, device: torch.device,
+                 kernel_route: bool = False):
         if not cfg.use_normal or cfg.deterministic:
             raise NotImplementedError("the port serves Normal (non-deterministic) latents only")
         self.cfg, self.device = cfg, device
@@ -104,14 +121,17 @@ class Server:
         self.encoder.to(device)
         self.decoder.to(device)
 
+        self.joseph = joseph_route(cfg, self.n_det, device, kernel_route)
+        self.theta_t = torch.as_tensor(self.theta, device=device)
         # The Joseph projector integrates over the image support only, so a
         # table built for the unpadded square recon projects onto the same
         # n_det detector as the reference's pad-to-n_det (train.py:272-283).
         self.skip_pad = not cfg.no_pad and self.x_size == self.y_size
-        img_hw = self.x_size if self.skip_pad else self.n_det
-        self.table = torch.as_tensor(
-            angle_table_fused(self.theta, img_hw, img_hw, self.n_det), device=device
-        )
+        if self.joseph:
+            img_hw = self.x_size if self.skip_pad else self.n_det
+            self.table = torch.as_tensor(
+                angle_table_fused(self.theta, img_hw, img_hw, self.n_det), device=device
+            )
 
     def restore(self, run_path: str, ckpt_num: Optional[int] = None) -> str:
         """Load params and anneal state from a trained run's checkpoint."""
@@ -137,8 +157,11 @@ class Server:
         return torch.tensor(self.pnm, **f32) * power
 
     def project(self, recon: torch.Tensor, angles_i: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, x, y) -> (B, A_sub, n_det) through the fused projector, over the
-        angles ``angles_i`` (all angles when None); differentiable."""
+        """(B, x, y) -> (B, A_sub, n_det) over the angles ``angles_i`` (all
+        angles when None) on the routed projector; differentiable."""
+        if not self.joseph:
+            theta = self.theta_t if angles_i is None else self.theta_t.index_select(0, angles_i)
+            return radon(recon, theta, pad=not self.cfg.no_pad, n_det=self.n_det)
         if not self.skip_pad and not self.cfg.no_pad:
             recon = pad_phantom(recon, self.n_det)
         table = self.table if angles_i is None else self.table.index_select(0, angles_i)

@@ -7,8 +7,9 @@ adds (train.py:76-690):
   * parameters drawn from a seed with flax's initialisers (``init_params``);
   * the step: kl anneal ``clip(kl * factor, 0, 100)``, pnm annealed as
     ``pnm * factor**min(step, num_iter)`` in float32, the ELBO over the
-    step's angle subset with kernel A forward and kernel B backward, then
-    the optimiser ``nan_zero_and_clip`` + Adam;
+    step's angle subset on the routed projector (``Server``: kernel A
+    forward and kernel B backward, or the gather projector), then the
+    optimiser ``nan_zero_and_clip`` + Adam;
   * the loop: ``IndexStream`` batch and angle streams (seeds seed+1 and
     seed+2), metrics flushed every ``metrics_every`` steps, the NaN-loss
     stop, ``setup_time.npy`` / ``training_time.npy``, checkpoints at
@@ -117,6 +118,7 @@ class Trainer(Server):
         theta: Optional[np.ndarray] = None,
         device: DeviceLike = "cuda",
         sampler: Optional[Sampler] = None,
+        kernel_route: bool = False,
     ):
         self.setup_start_time = time.time()
         not_ported = {
@@ -138,7 +140,7 @@ class Trainer(Server):
                     "create a dataset first: python -m ct_pvae_tpu.cli make-data"
                 )
             sinograms, theta, _ = data_io.load_dataset(cfg.input_path)
-        super().__init__(cfg, sinograms, theta, dev)
+        super().__init__(cfg, sinograms, theta, dev, kernel_route)
         self.train_size = (self.num_examples // cfg.batch_size) * cfg.batch_size
         self.models = {"decoder": self.decoder, "encoder": self.encoder}  # flax's key order
 

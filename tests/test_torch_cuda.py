@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the gather route on a CUDA tensor.
 
 Marked ``cuda``: they skip without an NVIDIA GPU (and nvcc).  On a machine
 with one: ``python -m pytest tests/test_torch_cuda.py -m cuda -q``.
@@ -8,7 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+from ct_pvae_tpu_torch.config import Config
+from ct_pvae_tpu_torch.ops import conv_fused
 from ct_pvae_tpu_torch.ops import joseph_radon as jr
+from ct_pvae_tpu_torch.ops import radon
+from ct_pvae_tpu_torch.scripts.probe_conv_fused import probe_inputs
+from ct_pvae_tpu_torch.vi.serve import joseph_route
 
 pytestmark = pytest.mark.cuda
 
@@ -95,3 +101,42 @@ def test_static_pair_and_autograd_on_the_card(cuda):
     assert jr.LAUNCHES["joseph_adj"] == before["joseph_adj"] + 1
     torch.testing.assert_close(img.grad, jr.radon_fused_adjoint_plain(w, table, 128), rtol=1e-5,
                                atol=1e-5 * float(img.grad.abs().max()))
+
+
+@pytest.mark.parametrize("b, hw, c, f", [(10, 128, 40, 40), (3, 37, 11, 70)])
+def test_conv_fused_kernel_matches_plain(cuda, b, hw, c, f):
+    """Kernel E at the probe's default shape and at a ragged one (tiles cut
+    at the edges, two blocks of output pairs, a channel chunk cut short)."""
+    x, kern, bias = probe_inputs(b, hw, c, f, 3, cuda)
+    x = x[:, :, : hw - 2].contiguous()  # W = hw - 2: not a multiple of the column tile
+    before = conv_fused.LAUNCHES["conv_fused_maxout"]
+    out = conv_fused.conv3x3_periodic_maxout(x, kern, bias)
+    torch.cuda.synchronize()
+    assert conv_fused.LAUNCHES["conv_fused_maxout"] == before + 1
+    ref = conv_fused.conv3x3_periodic_maxout_plain(x, kern, bias)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    with pytest.raises(RuntimeError, match="forward only"):
+        conv_fused.conv3x3_periodic_maxout(x.requires_grad_(), kern, bias)
+
+
+def test_gather_route_on_a_cuda_tensor(cuda):
+    """Below 64 detector pixels, or with use_pallas off, the card takes the
+    gather projector: the same numbers as the CPU's, and the same gradient."""
+    assert not joseph_route(Config(), 63, cuda) and not joseph_route(Config(use_pallas=False), 184, cuda)
+    assert joseph_route(Config(), 64, cuda)
+    rng = np.random.default_rng(3)
+    img = torch.as_tensor(rng.uniform(0, 1, (20, 128, 128)).astype(np.float32))
+    theta = torch.as_tensor(np.sort(rng.uniform(0, np.pi, 20)).astype(np.float32))
+    x = img.to(cuda).requires_grad_()
+    calls, launches = radon.CALLS["radon"], dict(jr.LAUNCHES)
+    out = radon.radon(x, theta.to(cuda), pad=True, n_det=184)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert radon.CALLS["radon"] == calls + 1 and jr.LAUNCHES == launches
+    x_cpu = img.clone().requires_grad_()
+    ref = radon.radon(x_cpu, theta, pad=True, n_det=184)
+    ref.square().sum().backward()
+    ref = ref.detach()
+    torch.testing.assert_close(out.detach().cpu(), ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    torch.testing.assert_close(x.grad.cpu(), x_cpu.grad, rtol=1e-5,
+                               atol=1e-5 * float(x_cpu.grad.abs().max()))

@@ -7,7 +7,8 @@ JAX run's cache files, read through ``reuse_cache``), the same initial
 params (the JAX run's ``ckpt-0``), the same index streams and the JAX run's
 draws.  The JAX Trainer takes its Pallas route (kernels A/B in interpret
 mode) only with ``n_det >= 64`` and a mesh, so it gets a 64-pixel detector
-and a one-device mesh.
+and a one-device mesh; the port's trainer gets the counterpart,
+``kernel_route=True`` (its Joseph kernels' plain versions on the CPU).
 """
 
 import os
@@ -114,7 +115,8 @@ def _port_run_dir(jax_run, name):
 
 def _port_trainer(jax_run, save_path, **over):
     cfg = Config(save_path=str(save_path), reuse_cache=True, **{**KW, **over})
-    return Trainer(cfg, jax_run["sinos"], jax_run["theta"], CPU, JaxTrainSampler(KW["seed"]))
+    return Trainer(cfg, jax_run["sinos"], jax_run["theta"], CPU, JaxTrainSampler(KW["seed"]),
+                   kernel_route=True)
 
 
 def _flat(tree):
@@ -390,7 +392,9 @@ def test_cli_train_on_cpu(tmp_path, capsys):
     assert "Average loss final : " in capsys.readouterr().out
     cfg = Config.load(str(tmp_path / "run" / "config.json"))
     assert cfg.num_iter == 2 and cfg.algorithms == ["fbp", "gridrec"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(["train", "--config", str(tmp_path / "c.yaml"), "--device", "cpu"])
+    # a YAML recipe loads, and typed flags override it
+    (tmp_path / "c.yaml").write_text("# recipe\nbatch_size: 10\npnm_start: 1.0e3\nalgorithms: [fbp]\n")
+    cfg, device = cli._parse_train_cfg(["--config", str(tmp_path / "c.yaml"), "-b", "3"], "train")
+    assert (cfg.batch_size, cfg.pnm_start, cfg.algorithms, device) == (3, 1000.0, ["fbp"], "cuda")
     with pytest.raises(NotImplementedError, match="train_pnm"):
         cli.main(["train", "--input_path", str(data), "--train_pnm", "--device", "cpu"])
