@@ -7,12 +7,17 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 
   1. device  - the card (nvidia-smi name and power limit), torch, CUDA, TF32
   2. build   - nvcc builds every kernel from csrc/, one process per source,
-               all started together
+               all started together; ptxas's registers and spills for each kernel
   3. kernels - each kernel against its plain PyTorch version at the shapes
                the main paths give it: A (forward) at the serving and the
                training shape, B (adjoint) at the training shape, C and D
-               (the static pair) at the init-stack shape; kernel, plain and
-               library-call times, the kernel's bound, and <Ax, g> = <x, A^T g>
+               (the static pair, csrc/joseph_{fwd,adj}_static.cu) at the
+               init-stack shape and at the ragged batches 4 and 1; B, C and D
+               at 1200 angles; kernel, plain and library-call times, C's and
+               D's old design (A's and B's entry points fed the full table)
+               timed beside them (also at batch 4), the kernel's bound,
+               <Ax, g> = <x, A^T g>, and SIRT and TV on 32 sinograms through
+               the new pair and the old design
   4. serve   - ``ct_pvae_tpu_torch.cli infer --cheap_init`` on the first 100
                sinograms of dataset_foam with the foam paper run's weights
                (results/foam_paper_run_r4), at full width; launch counts,
@@ -70,6 +75,8 @@ PSNR_FLOOR_DB = 15.0
 KERNEL_RTOL = 1e-5       # relative, plus KERNEL_ATOL_FRAC * max|plain|:
 KERNEL_ATOL_FRAC = 1e-5  # the kernel and plain version differ in summation order only
 ADJOINT_RTOL = 1e-5      # <Ax, g> against <x, A^T g>, float64 sums of float32 terms
+STATIC_ADJOINT_RTOL = 1e-6  # the same for C and D, whose taps are bitwise the same
+MANY_ANGLES = 1200       # above the 1024 that B and D once took
 CPU_EVAL_RTOL = 1e-3     # GPU (cuDNN, no TF32) vs CPU eval step on the same draws
 CPU_STEP_LOSS_RTOL = 1e-5  # GPU vs CPU train step: the loss
 CPU_GRAD_RTOL = 2e-2       # and each gradient's error norm over its norm: cuDNN runs
@@ -174,10 +181,12 @@ def bound(bytes_moved: int, ops: int):
     return max(bytes_ms, ops_ms), by, text
 
 
-def check_kernel(label, kernel, plain, x, table, n, n_det, adjoint=False):
+def check_kernel(label, kernel, plain, x, table, n, n_det, adjoint=False, old=None):
     """Kernel vs plain version on ``x``, times, bound, and the same function
     as one cuSPARSE product (the projector's CSR matrix, or its transpose
-    for an adjoint); returns the kernel's record."""
+    for an adjoint); with ``old``, the old design of the same function timed
+    in turns with the kernel (kernel, old, kernel, old; each time the mean of
+    its two medians).  Returns the kernel's record."""
     import torch
 
     b = x.shape[0]
@@ -187,7 +196,12 @@ def check_kernel(label, kernel, plain, x, table, n, n_det, adjoint=False):
     torch.cuda.synchronize()
     max_abs = compare(label, f"{tuple(x.shape)} x {a} angles", got, want)
 
-    ms = cuda_ms(lambda: kernel(x), 10, per_sample=20)
+    if old is None:
+        ms = cuda_ms(lambda: kernel(x), 10, per_sample=20)
+    else:
+        old_err = float((old(x) - want).abs().max())
+        turns = [cuda_ms(lambda: fn(x), 10, per_sample=20) for fn in (kernel, old, kernel, old)]
+        ms, old_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
     plain_ms = cuda_ms(lambda: plain(x), 3)
 
     rows, cols, vals = joseph_taps(table, n, n_det)
@@ -206,8 +220,14 @@ def check_kernel(label, kernel, plain, x, table, n, n_det, adjoint=False):
     bound_ms, bound_by, text = bound(bytes_moved, ops)
     log(f"  {label}: kernel {ms:.4f} ms (median of 10 x 20 queued launches), plain {plain_ms:.3f} ms, "
         f"cuSPARSE csr@dense {library_ms:.4f} ms (max abs err {lib_err:.2e}); {text}; {taps} taps")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    record = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=library_ms)
+    if old is not None:
+        log(f"  {label}: old design {old_ms:.4f} ms (max abs err {old_err:.2e}); kernel in turns with it "
+            f"{turns[0]:.4f} / {turns[2]:.4f} ms, old {turns[1]:.4f} / {turns[3]:.4f} ms: "
+            f"{old_ms / ms:.2f}x faster, {library_ms / ms:.2f}x faster than cuSPARSE")
+        record["old_design_ms"] = old_ms
+    return record
 
 
 def check_conv_fused(label, x, kern, bias, timed: bool):
@@ -243,13 +263,13 @@ def check_conv_fused(label, x, kern, bias, timed: bool):
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def check_adjoint(label, fwd, adj, x, g) -> None:
+def check_adjoint(label, fwd, adj, x, g, rtol=ADJOINT_RTOL) -> None:
     """<fwd(x), g> against <x, adj(g)> on the card."""
     lhs = float((fwd(x).double() * g.double()).sum())
     rhs = float((x.double() * adj(g).double()).sum())
     rel = abs(lhs - rhs) / abs(lhs)
-    log(f"  {label}: <Ax, g> {lhs:.10g} vs <x, A^T g> {rhs:.10g} (rel {rel:.2e}, tolerance {ADJOINT_RTOL:g})")
-    if not rel <= ADJOINT_RTOL:
+    log(f"  {label}: <Ax, g> {lhs:.10g} vs <x, A^T g> {rhs:.10g} (rel {rel:.2e}, tolerance {rtol:g})")
+    if not rel <= rtol:
         raise AssertionError(f"{label}: the adjoint kernel is not the forward's transpose")
 
 
@@ -419,7 +439,7 @@ def main() -> int:
     from ct_pvae_tpu_torch.data.io import load_dataset
     from ct_pvae_tpu_torch.device import exact_f32
     from ct_pvae_tpu_torch.eval.metrics import mean_psnr
-    from ct_pvae_tpu_torch.ops import _cuda, conv_fused, joseph_radon, radon
+    from ct_pvae_tpu_torch.ops import _cuda, conv_fused, joseph_radon, radon, sirt, tv
     from ct_pvae_tpu_torch.scripts import probe_conv_fused
 
     t_all = time.perf_counter()
@@ -435,10 +455,14 @@ def main() -> int:
 
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("joseph_fwd", "joseph_adj", "conv_fused")
+    sources = ("joseph_fwd", "joseph_adj", "joseph_fwd_static", "joseph_adj_static", "conv_fused")
     _cuda.load_libraries(*sources)
     log(f"[build] {', '.join(f'{n}.cu' for n in sources)} built in parallel and loaded in "
         f"{time.perf_counter() - t0:.2f} s into {_cuda.BUILD_DIR}")
+    for name in sources:  # ptxas -v: spills and registers of each kernel instantiation
+        for line in _cuda.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {name}.cu: {line.split(':', 1)[-1].strip()}")
 
     # -- 3. kernels against their plain versions --------------------------
     jr = joseph_radon
@@ -466,15 +490,68 @@ def main() -> int:
     full = jr.static_table(theta_f, n_det, n_det, dev)
     img_init = torch.rand((INIT_BATCH, n_det, n_det), generator=gen, device=dev)
     sino_init = torch.rand((INIT_BATCH, len(theta), n_det), generator=gen, device=dev)
+    c_new = lambda x: jr.radon_static(x, theta_f, n_det)
+    d_new = lambda g: jr.backproject_static(g, theta_f, n_det, n_det)
+    c_plain = lambda x: jr.radon_fused_plain(x, full, n_det)
+    d_plain = lambda g: jr.radon_fused_adjoint_plain(g, full, n_det)
+    c_old = lambda x: jr.radon_fused(x, full, n_det)          # the old design of C and D:
+    d_old = lambda g: jr.radon_fused_adjoint(g, full, n_det)  # A and B fed the full table
     records["joseph_fwd_static"] = check_kernel(
-        "C init", lambda x: jr.radon_static(x, theta_f, n_det),
-        lambda x: jr.radon_fused_plain(x, full, n_det), img_init, full, n_det, n_det)
+        "C init", c_new, c_plain, img_init, full, n_det, n_det, old=c_old)
     records["joseph_adj_static"] = check_kernel(
-        "D init", lambda g: jr.backproject_static(g, theta_f, n_det, n_det),
-        lambda g: jr.radon_fused_adjoint_plain(g, full, n_det), sino_init, full, n_det, n_det,
-        adjoint=True)
-    check_adjoint("C/D init", lambda x: jr.radon_static(x, theta_f, n_det),
-                  lambda g: jr.backproject_static(g, theta_f, n_det, n_det), img_init, sino_init)
+        "D init", d_new, d_plain, sino_init, full, n_det, n_det, adjoint=True, old=d_old)
+    check_adjoint("C/D init", c_new, d_new, img_init, sino_init, rtol=STATIC_ADJOINT_RTOL)
+    for rb in (8, 4, 1):  # ragged last init batches (1000 scans end on 8, 100 on 4)
+        xr, gr = img_init[:rb].contiguous(), sino_init[:rb].contiguous()
+        compare(f"C ragged {rb}", f"{tuple(xr.shape)} x {len(theta)} angles", c_new(xr), c_plain(xr))
+        compare(f"D ragged {rb}", f"{tuple(gr.shape)}", d_new(gr), d_plain(gr))
+        check_adjoint(f"C/D ragged {rb}", c_new, d_new, xr, gr, rtol=STATIC_ADJOINT_RTOL)
+    # C and D loading element by element: n and n_det not multiples of 4, or
+    # image and sinogram not on 16 bytes (a view one float into its storage)
+    for rb, rn, ra, rt, off in ((5, 37, 53, 50, 0), (6, 32, 20, 48, 1)):
+        th = tuple(float(t) for t in np.linspace(0, np.pi, ra, endpoint=False))
+        tab = jr.static_table(th, rn, rt, dev)
+        xo = torch.zeros(rb * rn * rn + off, device=dev)[off:].view(rb, rn, rn)
+        go = torch.zeros(rb * ra * rt + off, device=dev)[off:].view(rb, ra, rt)
+        xo.copy_(torch.rand((rb, rn, rn), generator=gen, device=dev))
+        go.copy_(torch.randn((rb, ra, rt), generator=gen, device=dev))
+        what = f"{tuple(xo.shape)} x {ra} angles -> {rt} bins, {off} float(s) into the storage"
+        c_odd = lambda x: jr.radon_static(x, th, rt)
+        d_odd = lambda g: jr.backproject_static(g, th, rn, rn)
+        compare("C odd", what, c_odd(xo), jr.radon_fused_plain(xo, tab, rt))
+        compare("D odd", what, d_odd(go), jr.radon_fused_adjoint_plain(go, tab, rn))
+        check_adjoint(f"C/D odd {tuple(xo.shape)}", c_odd, d_odd, xo, go, rtol=STATIC_ADJOINT_RTOL)
+    # the last init batch of 100 scans, in turns with the old design
+    x4, g4 = img_init[:4].contiguous(), sino_init[:4].contiguous()
+    c_bare = lambda x: jr._static_forward(x, theta_f, n_det)  # C without its autograd Function
+    t_c, t_c_bare, t_c_old, t_d, t_d_old = (
+        cuda_ms(lambda: fn(v), 10, per_sample=20)
+        for fn, v in ((c_new, x4), (c_bare, x4), (c_old, x4), (d_new, g4), (d_old, g4)))
+    log(f"  C/D ragged 4: C {t_c:.4f} ms (without the autograd Function {t_c_bare:.4f}; old design "
+        f"{t_c_old:.4f}), D {t_d:.4f} ms (old design {t_d_old:.4f}), median of 10 x 20 queued launches")
+    # SIRT (30 iterations) and TV (60) on 32 sinograms through the new pair
+    # and the old design: the same taps, another summation order
+    sino32 = torch.as_tensor(np.clip(np.asarray(sinos_all[:INIT_BATCH], np.float32), 0, None), device=dev)
+    for alg, fn, iters in (("sirt", sirt.sirt_with_ops, 30), ("tv", tv.tv_with_ops, 60)):
+        new = fn(sino32, c_new, d_new, n_det, n_det, num_iter=iters)
+        ref = fn(sino32, c_old, d_old, n_det, n_det, num_iter=iters)
+        rel = float((new - ref).abs().max() / ref.abs().max())
+        log(f"  {alg} ({iters} iterations) on {tuple(sino32.shape)}: new pair vs old design, max abs "
+            f"diff / max {rel:.2e}, norm of diff / norm {float((new - ref).norm() / ref.norm()):.2e}")
+        if alg == "sirt" and not rel <= 1e-3:  # rounding, through 30 iterations
+            raise AssertionError("SIRT on the new pair is not the old design's to rounding")
+    # above 1024 angles: B and D stage their tables in chunks
+    theta_many = tuple(float(t) for t in np.linspace(0, np.pi, MANY_ANGLES, endpoint=False))
+    many = jr.static_table(theta_many, 32, 48, dev)
+    g_many = torch.randn((3, MANY_ANGLES, 48), generator=gen, device=dev)
+    x_many = torch.rand((3, 32, 32), generator=gen, device=dev)
+    adj_many = jr.radon_fused_adjoint_plain(g_many, many, 32)
+    compare(f"B {MANY_ANGLES} angles", f"{tuple(g_many.shape)}", jr.radon_fused_adjoint(g_many, many, 32),
+            adj_many)
+    compare(f"D {MANY_ANGLES} angles", f"{tuple(g_many.shape)}",
+            jr.backproject_static(g_many, theta_many, 32, 32), adj_many)
+    compare(f"C {MANY_ANGLES} angles", f"{tuple(x_many.shape)}", jr.radon_static(x_many, theta_many, 48),
+            jr.radon_fused_plain(x_many, many, 48))
     log("[kernels] ok")
 
     # -- 4. serve --------------------------------------------------------
@@ -678,8 +755,8 @@ def main() -> int:
     meta = {
         "joseph_fwd": ("csrc/joseph_fwd.cu", "ct_pvae_tpu/ops/pallas_radon.py:455"),
         "joseph_adj": ("csrc/joseph_adj.cu", "ct_pvae_tpu/ops/pallas_radon.py:487"),
-        "joseph_fwd_static": ("csrc/joseph_fwd.cu", "ct_pvae_tpu/ops/pallas_radon.py:124"),
-        "joseph_adj_static": ("csrc/joseph_adj.cu", "ct_pvae_tpu/ops/pallas_radon.py:152"),
+        "joseph_fwd_static": ("csrc/joseph_fwd_static.cu", "ct_pvae_tpu/ops/pallas_radon.py:124"),
+        "joseph_adj_static": ("csrc/joseph_adj_static.cu", "ct_pvae_tpu/ops/pallas_radon.py:152"),
         "conv_fused_maxout": ("csrc/conv_fused.cu", "scripts/probe_conv_fused.py:97"),
     }
     # A-D: their launches on the train path (phase 5); E: on the probe (phase 8)

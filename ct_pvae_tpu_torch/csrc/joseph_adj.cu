@@ -1,9 +1,9 @@
 // Adjoint of the fused Joseph projector (backprojection) for Hopper (sm_90a).
 //
-// Replaces the TPU kernels `_adj_kernel_fused` (ct_pvae_tpu/ops/pallas_radon.py,
-// driven by `_fused_adj_impl`, the VJP of `radon_pallas_fused`) and, fed the
-// full static-angle table, `_adj_kernel` (driven by `_run_group_adj`, behind
-// `backproject_pallas` and the VJP of `radon_pallas`).  For a (B, A, T)
+// Replaces the TPU kernel `_adj_kernel_fused` (ct_pvae_tpu/ops/pallas_radon.py,
+// driven by `_fused_adj_impl`, the VJP of `radon_pallas_fused`).  The
+// static-angle adjoint `_adj_kernel` has its own kernel, D
+// (joseph_adj_static.cu).  For a (B, A, T)
 // float32 sinogram g and the (A, 5) table of joseph_fwd.cu it computes the
 // exact transpose of that kernel:
 //
@@ -27,10 +27,10 @@
 // is zero adds exactly zero.
 //
 // Bound.  Per pixel and row: a few flops and at most two loads of g from a
-// data-dependent address.  g (20 x 20 x 184 floats in training, 32 x 180 x
-// 184 in the init stack) stays in L2, and the table sits in shared memory,
-// so the kernel is bound by load throughput and latency, not by device-memory
-// bytes or float32 arithmetic.
+// data-dependent address.  g (20 x 20 x 184 floats in training) stays in
+// L2, and the table goes through shared memory in chunks of kChunkRows rows
+// (so any number of angles is taken), so the kernel is bound by load
+// throughput and latency, not by device-memory bytes or float32 arithmetic.
 //
 // C interface for ctypes: pointers and the stream as void*, sizes as int;
 // returns cudaGetLastError() after the launch.  The caller allocates `img`.
@@ -43,47 +43,51 @@ namespace {
 
 constexpr int kTileJ = 32;
 constexpr int kTileI = 8;
-constexpr int kMaxRows = 1024;  // table rows held in shared memory
+constexpr int kChunkRows = 256;  // table rows staged in shared memory at a time
 
 __global__ void joseph_adj_kernel(const float* __restrict__ sino,
                                   const float* __restrict__ table,
                                   float* __restrict__ img,
                                   int n, int n_angles, int n_det) {
-  __shared__ float tab[kMaxRows * 5];
+  __shared__ float tab[kChunkRows * 5];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int k = tid; k < n_angles * 5; k += blockDim.x * blockDim.y) {
-    tab[k] = table[k];
-  }
-  __syncthreads();
-
   const int j = blockIdx.x * kTileJ + threadIdx.x;
   const int i = blockIdx.y * kTileI + threadIdx.y;
   const int b = blockIdx.z;
-  if (i >= n || j >= n) return;
+  const bool inside = i < n && j < n;
 
   const float* g = sino + static_cast<size_t>(b) * n_angles * n_det;
   float acc = 0.0f;
-  for (int a = 0; a < n_angles; ++a) {
-    const float slope_t = tab[5 * a + 0];
-    const float slope_r = tab[5 * a + 1];
-    const float offset = tab[5 * a + 2];
-    const float weight = tab[5 * a + 3];
-    const bool is_y = tab[5 * a + 4] > 0.5f;
-    const float rf = static_cast<float>(is_y ? j : i);
-    const float yf = static_cast<float>(is_y ? i : j);
-    const int t0 = static_cast<int>(floorf((yf - offset - slope_r * rf) / slope_t));
-    const float* row = g + static_cast<size_t>(a) * n_det;
-    float part = 0.0f;
-    for (int t = t0 - 1; t <= t0 + 2; ++t) {
-      if (t < 0 || t >= n_det) continue;
-      const float base = offset + slope_t * static_cast<float>(t);
-      const float pos = base + slope_r * rf;
-      const float hat = fmaxf(0.0f, 1.0f - fabsf(yf - pos));
-      if (hat > 0.0f) part += __ldg(row + t) * hat;
+  for (int a0 = 0; a0 < n_angles; a0 += kChunkRows) {
+    const int count = min(kChunkRows, n_angles - a0);
+    __syncthreads();  // the previous chunk is read by every thread
+    for (int k = tid; k < count * 5; k += blockDim.x * blockDim.y) {
+      tab[k] = table[a0 * 5 + k];
     }
-    acc += part * weight;
+    __syncthreads();
+    if (!inside) continue;
+    for (int q = 0; q < count; ++q) {
+      const float slope_t = tab[5 * q + 0];
+      const float slope_r = tab[5 * q + 1];
+      const float offset = tab[5 * q + 2];
+      const float weight = tab[5 * q + 3];
+      const bool is_y = tab[5 * q + 4] > 0.5f;
+      const float rf = static_cast<float>(is_y ? j : i);
+      const float yf = static_cast<float>(is_y ? i : j);
+      const int t0 = static_cast<int>(floorf((yf - offset - slope_r * rf) / slope_t));
+      const float* row = g + static_cast<size_t>(a0 + q) * n_det;
+      float part = 0.0f;
+      for (int t = t0 - 1; t <= t0 + 2; ++t) {
+        if (t < 0 || t >= n_det) continue;
+        const float base = offset + slope_t * static_cast<float>(t);
+        const float pos = base + slope_r * rf;
+        const float hat = fmaxf(0.0f, 1.0f - fabsf(yf - pos));
+        if (hat > 0.0f) part += __ldg(row + t) * hat;
+      }
+      acc += part * weight;
+    }
   }
-  img[(static_cast<size_t>(b) * n + i) * n + j] = acc;
+  if (inside) img[(static_cast<size_t>(b) * n + i) * n + j] = acc;
 }
 
 }  // namespace
@@ -91,7 +95,6 @@ __global__ void joseph_adj_kernel(const float* __restrict__ sino,
 extern "C" int joseph_adj(const void* sino, const void* table, void* img,
                           int batch, int n, int n_angles, int n_det,
                           void* stream) {
-  if (n_angles > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kTileJ, kTileI);
   const dim3 grid((n + kTileJ - 1) / kTileJ, (n + kTileI - 1) / kTileI, batch);
   joseph_adj_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -2,8 +2,10 @@
 
 Each source is compiled at first use, for ``sm_90a``, into a shared library
 with a plain C interface under ``ct_pvae_tpu_torch/build/`` (git-ignored),
-named by a hash of the source and flags so an edited source rebuilds.
-Nothing is compiled when this module is imported.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source rebuilds.  ``-Xptxas -v`` puts each kernel's
+registers, shared memory and spills into ``BUILD_LOG``.  Nothing is compiled
+when this module is imported.
 """
 
 from __future__ import annotations
@@ -24,12 +26,20 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# kernel C's rows come in groups of 16 (its blocks take 8 or 16), and the
+# largest image it stages: four lines of n + 5 pixels x 4 images in its 96 KB
+# slab
+FWD_STATIC_ROWS_PER_BLOCK = 16
+FWD_STATIC_MAX_N = 96 * 1024 // (4 * 16) - 5
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # wall seconds of the parallel build each library took part in (0.0 when cached)
 BUILD_SECONDS: Dict[str, float] = {}
+# ptxas's report (registers, shared memory, spills) of each library built here
+BUILD_LOG: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -44,12 +54,14 @@ def _nvcc() -> str:
 
 
 # C signatures of the libraries' entry points: (name, argtypes, restype).
-# Both take (input, table, output, batch, n, n_angles, n_det, stream).
+# The Joseph kernels take (input, table, output, batch, n, n_angles, n_det,
+# stream); kernel C takes its row count before n_angles.
 _JOSEPH_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
+_JOSEPH_FWD_STATIC_ARGS = [*_JOSEPH_ARGS[:5], ctypes.c_int, *_JOSEPH_ARGS[5:]]
 # (x, kern, bias, out, batch, h, w, c_in, f_out, stream)
 _CONV_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -59,16 +71,16 @@ _CONV_ARGS = [
 _SIGNATURES = {
     "joseph_fwd": [("joseph_fwd", _JOSEPH_ARGS, ctypes.c_int)],
     "joseph_adj": [("joseph_adj", _JOSEPH_ARGS, ctypes.c_int)],
+    "joseph_fwd_static": [("joseph_fwd_static", _JOSEPH_FWD_STATIC_ARGS, ctypes.c_int)],
+    "joseph_adj_static": [("joseph_adj_static", _JOSEPH_ARGS, ctypes.c_int)],
     "conv_fused": [("conv_fused_maxout", _CONV_ARGS, ctypes.c_int)],
 }
 
-# table rows the adjoint kernel keeps in shared memory (kMaxRows in joseph_adj.cu)
-ADJ_MAX_ANGLES = 1024
-
 
 def _so_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha1(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -93,6 +105,7 @@ def load_libraries(*names: str) -> Dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}\n{err}")
         else:
+            BUILD_LOG[name] = err
             os.replace(tmp, so)  # atomic: concurrent builds never load a partial file
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -119,40 +132,94 @@ def _check_cuda_f32(**tensors: torch.Tensor) -> None:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
 
 
-def _launch(lib_name: str, src: torch.Tensor, table: torch.Tensor, out: torch.Tensor,
-            n: int, n_det: int) -> torch.Tensor:
-    batch, a = src.shape[0], table.shape[0]
-    if not (0 < a <= 65535 and 0 < batch <= 65535 and n > 0 and n_det > 0):
-        raise ValueError(f"grid out of range: batch {batch}, angles {a}, n {n}, n_det {n_det}")
-    fn = getattr(load_libraries(lib_name)[lib_name], lib_name)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(src.data_ptr(), table.data_ptr(), out.data_ptr(), batch, n, a, n_det, stream)
+def _call(lib_name: str, device: torch.device, *args) -> None:
+    """Launch the entry point of library ``lib_name`` with ``args`` on
+    ``device``'s current stream; raise if the launch failed."""
+    fn_name = _SIGNATURES[lib_name][0][0]
+    fn = getattr(load_libraries(lib_name)[lib_name], fn_name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{lib_name} launch failed: cudaError {err}")
-    return out
+        raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
+
+
+def _check_grid(ok: bool, **sizes: int) -> None:
+    if not ok:
+        raise ValueError("grid out of range: " + ", ".join(f"{k} {v}" for k, v in sizes.items()))
 
 
 def joseph_fwd(image: torch.Tensor, table: torch.Tensor, n_det: int) -> torch.Tensor:
     """Launch the fused Joseph kernel on CUDA tensors: (B, N, N) x (A, 5) -> (B, A, n_det)."""
     _check_cuda_f32(image=image, table=table)
     b, n, n2 = image.shape
-    if n != n2 or table.shape != (table.shape[0], 5):
+    a = table.shape[0]
+    if n != n2 or table.shape != (a, 5):
         raise ValueError(f"bad shapes image {tuple(image.shape)} table {tuple(table.shape)}")
-    out = torch.empty((b, table.shape[0], n_det), dtype=torch.float32, device=image.device)
-    return _launch("joseph_fwd", image, table, out, n, n_det)
+    _check_grid(0 < a <= 65535 and 0 < b <= 65535 and n > 0 and n_det > 0,
+                batch=b, angles=a, n=n, n_det=n_det)
+    out = torch.empty((b, a, n_det), dtype=torch.float32, device=image.device)
+    _call("joseph_fwd", image.device, image.data_ptr(), table.data_ptr(), out.data_ptr(),
+          b, n, a, n_det)
+    return out
 
 
 def joseph_adj(sino: torch.Tensor, table: torch.Tensor, n: int) -> torch.Tensor:
-    """Launch the Joseph adjoint kernel on CUDA tensors: (B, A, T) x (A, 5) -> (B, n, n)."""
+    """Launch the Joseph adjoint kernel on CUDA tensors: (B, A, T) x (A, 5) -> (B, n, n).
+    Any number of angles: the kernel stages the table in chunks."""
     _check_cuda_f32(sino=sino, table=table)
     b, a, n_det = sino.shape
     if table.shape != (a, 5):
         raise ValueError(f"bad shapes sinogram {tuple(sino.shape)} table {tuple(table.shape)}")
-    if a > ADJ_MAX_ANGLES:
-        raise ValueError(f"the adjoint kernel takes at most {ADJ_MAX_ANGLES} angles, got {a}")
+    _check_grid(0 < a and 0 < b <= 65535 and 0 < n and -(-n // 8) <= 65535, batch=b, angles=a, n=n)
     out = torch.empty((b, n, n), dtype=torch.float32, device=sino.device)
-    return _launch("joseph_adj", sino, table, out, n, n_det)
+    _call("joseph_adj", sino.device, sino.data_ptr(), table.data_ptr(), out.data_ptr(),
+          b, n, a, n_det)
+    return out
+
+
+def _check_rows(rows: torch.Tensor, n_rows: int) -> None:
+    if rows.shape != (n_rows, 8):
+        raise ValueError(f"kernel rows must be ({n_rows}, 8), got {tuple(rows.shape)}")
+    if rows.data_ptr() % 16:
+        raise ValueError("kernel rows must be 16-byte aligned (read as float4)")
+
+
+def joseph_fwd_static(image: torch.Tensor, rows: torch.Tensor, n_angles: int,
+                      n_det: int) -> torch.Tensor:
+    """Launch kernel C on CUDA tensors: (B, N, N) x (A', 8) kernel rows grouped
+    by major axis (``joseph_radon.forward_rows``) -> (B, n_angles, n_det)."""
+    _check_cuda_f32(image=image, rows=rows)
+    b, n, n2 = image.shape
+    if n != n2:
+        raise ValueError(f"image must be (B, N, N), got {tuple(image.shape)}")
+    n_rows = rows.shape[0]
+    _check_rows(rows, n_rows)
+    if n_rows % FWD_STATIC_ROWS_PER_BLOCK or n > FWD_STATIC_MAX_N:
+        raise ValueError(f"kernel C takes rows in groups of {FWD_STATIC_ROWS_PER_BLOCK} and "
+                         f"images up to {FWD_STATIC_MAX_N} pixels: {n_rows} rows, n {n}")
+    # grid (detector tiles, row groups, batch chunks of 4 x halves of the lines)
+    _check_grid(0 < n_rows <= 65535 * FWD_STATIC_ROWS_PER_BLOCK and 0 < b and -(-b // 4) * 2 <= 65535
+                and n > 0 and n_angles > 0 and n_det > 0,
+                batch=b, rows=n_rows, n=n, n_det=n_det)
+    out = torch.zeros((b, n_angles, n_det), dtype=torch.float32, device=image.device)
+    _call("joseph_fwd_static", image.device, image.data_ptr(), rows.data_ptr(), out.data_ptr(),
+          b, n, n_rows, n_angles, n_det)
+    return out
+
+
+def joseph_adj_static(sino: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
+    """Launch kernel D on CUDA tensors: (B, A, T) x (A, 8) kernel rows -> (B, n, n).
+    Any number of angles: the kernel stages the rows in chunks."""
+    _check_cuda_f32(sino=sino, rows=rows)
+    b, a, n_det = sino.shape
+    _check_rows(rows, a)
+    # grid (column tiles, row tiles, batch chunks of at least 4)
+    _check_grid(0 < a and 0 < b and -(-b // 4) <= 65535 and 0 < n and -(-n // 8) <= 65535,
+                batch=b, angles=a, n=n)
+    out = torch.empty((b, n, n), dtype=torch.float32, device=sino.device)
+    _call("joseph_adj_static", sino.device, sino.data_ptr(), rows.data_ptr(), out.data_ptr(),
+          b, n, a, n_det)
+    return out
 
 
 # output channel pairs per block (kMaxPairs in conv_fused.cu)
@@ -171,11 +238,6 @@ def conv_fused_maxout(x: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor) -
     if not (b > 0 and h > 0 and w > 0 and c > 0 and z <= 65535 and -(-h // 8) <= 65535):
         raise ValueError(f"grid out of range: x {tuple(x.shape)}, F {f}")
     out = torch.empty((b, h, w, f), dtype=torch.float32, device=x.device)
-    fn = load_libraries("conv_fused")["conv_fused"].conv_fused_maxout
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), kern.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c, f,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"conv_fused_maxout launch failed: cudaError {err}")
+    _call("conv_fused", x.device, x.data_ptr(), kern.data_ptr(), bias.data_ptr(), out.data_ptr(),
+          b, h, w, c, f)
     return out

@@ -18,11 +18,19 @@ and the plain versions here use that two-tap form.
   * kernel B, ``csrc/joseph_adj.cu``: its exact transpose
     (``_adj_kernel_fused``), the backward of the ``torch.autograd.Function``
     behind ``radon_fused``;
-  * kernels C and D (``_fwd_kernel`` / ``_adj_kernel``, the static-angle pair
-    behind ``radon_pallas`` / ``backproject_pallas``) are the same two CUDA
-    entry points fed the full-angle table: there the row's flag does what the
-    TPU code does by splitting the angles into two major-axis groups.
-    ``radon_static`` / ``backproject_static`` count their launches apart.
+  * kernel C, ``csrc/joseph_fwd_static.cu``: the static-angle forward
+    (``_fwd_kernel``, behind ``radon_pallas``) on the full-angle table,
+    behind ``radon_static``;
+  * kernel D, ``csrc/joseph_adj_static.cu``: its exact transpose
+    (``_adj_kernel``, behind ``backproject_pallas``), behind
+    ``backproject_static`` and the backward of ``radon_static``.
+
+On the full table the row's flag does what the TPU code does by splitting
+the angles into two major-axis groups.  C and D find each tap once for a
+chunk of batch images and read (A, 8) kernel rows (``kernel_rows``: the
+table, 1/slope_t and the angle index; C's grouped by major axis,
+``forward_rows``); their taps come from one expression in
+``csrc/joseph_tap.cuh``.
 
 A CUDA tensor goes through the kernels, a CPU tensor through the plain
 versions; there is no fallback between the two.  ``LAUNCHES`` counts kernel
@@ -37,8 +45,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ._cuda import FWD_STATIC_ROWS_PER_BLOCK
+
 # Kernel launches: A and B through ``radon_fused``, C and D through
-# ``radon_static`` / ``backproject_static``.
+# ``radon_static`` (and its backward) / ``backproject_static``.
 LAUNCHES = {"joseph_fwd": 0, "joseph_adj": 0, "joseph_fwd_static": 0, "joseph_adj_static": 0}
 
 
@@ -76,6 +86,32 @@ def angle_table_fused(theta: np.ndarray, h: int, w: int, n_det: int) -> np.ndarr
         axis=-1,
     )
     return tab.astype(np.float32)
+
+
+def kernel_rows(table: np.ndarray) -> np.ndarray:
+    """(A, 8) float32 rows of kernels C and D, 32 bytes a row: the (A, 5)
+    table, 1/slope_t (computed in float64, rounded once), the row's angle
+    index and a zero."""
+    table = np.asarray(table, np.float32)
+    rows = np.zeros((len(table), 8), np.float32)
+    rows[:, :5] = table
+    rows[:, 5] = 1.0 / table[:, 0].astype(np.float64)
+    rows[:, 6] = np.arange(len(table))
+    return rows
+
+
+def forward_rows(rows: np.ndarray) -> np.ndarray:
+    """Kernel C's rows: the x-major rows, then the y-major ones, each group
+    padded to a multiple of ``FWD_STATIC_ROWS_PER_BLOCK`` with empty rows (angle index -1,
+    weight 0, an offset that puts every tap off the image), so that a
+    block's rows read one source, as the TPU code's two groups do."""
+    parts = []
+    for flag in (0.0, 1.0):
+        group = rows[rows[:, 4] == flag]
+        empty = np.zeros((-len(group) % FWD_STATIC_ROWS_PER_BLOCK, 8), np.float32)
+        empty[:, [0, 2, 4, 5, 6]] = (1.0, -1e9, flag, 1.0, -1.0)
+        parts += [group, empty]
+    return np.concatenate(parts)
 
 
 def _check_args(image: torch.Tensor, table: torch.Tensor, n_det: int) -> None:
@@ -152,23 +188,23 @@ def radon_fused_adjoint_plain(sino: torch.Tensor, table: torch.Tensor, n: int) -
     return out.reshape(b, n, n)
 
 
-def _forward(image: torch.Tensor, table: torch.Tensor, n_det: int, counter: str) -> torch.Tensor:
+def _forward(image: torch.Tensor, table: torch.Tensor, n_det: int) -> torch.Tensor:
     if image.device.type == "cpu":
         return radon_fused_plain(image, table, n_det)
     from ._cuda import joseph_fwd
 
     out = joseph_fwd(image, table, n_det)  # checks its inputs; raises off CUDA
-    LAUNCHES[counter] += 1
+    LAUNCHES["joseph_fwd"] += 1
     return out
 
 
-def _adjoint(sino: torch.Tensor, table: torch.Tensor, n: int, counter: str) -> torch.Tensor:
+def _adjoint(sino: torch.Tensor, table: torch.Tensor, n: int) -> torch.Tensor:
     if sino.device.type == "cpu":
         return radon_fused_adjoint_plain(sino, table, n)
     from ._cuda import joseph_adj
 
     out = joseph_adj(sino, table, n)
-    LAUNCHES[counter] += 1
+    LAUNCHES["joseph_adj"] += 1
     return out
 
 
@@ -178,27 +214,27 @@ class _JosephProject(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, image, table, n_det, counters):
+    def forward(ctx, image, table, n_det):
         ctx.save_for_backward(table)
-        ctx.n, ctx.adj_counter = image.shape[-1], counters[1]
-        return _forward(image, table, n_det, counters[0])
+        ctx.n = image.shape[-1]
+        return _forward(image, table, n_det)
 
     @staticmethod
     def backward(ctx, grad):
         (table,) = ctx.saved_tensors
-        return _adjoint(grad.contiguous(), table, ctx.n, ctx.adj_counter), None, None, None
+        return _adjoint(grad.contiguous(), table, ctx.n), None, None
 
 
 def radon_fused(image: torch.Tensor, table: torch.Tensor, n_det: int) -> torch.Tensor:
     """Fused Joseph projection (B, N, N) x (A, 5) -> (B, A, n_det), differentiable
     in the image: kernel A forward, kernel B backward."""
     _check_args(image, table, n_det)
-    return _JosephProject.apply(image, table, n_det, ("joseph_fwd", "joseph_adj"))
+    return _JosephProject.apply(image, table, n_det)
 
 
 def radon_fused_adjoint(sino: torch.Tensor, table: torch.Tensor, n: int) -> torch.Tensor:
     """Kernel B alone: the exact adjoint of ``radon_fused``, (B, A, T) -> (B, n, n)."""
-    return _adjoint(sino, table, n, "joseph_adj")
+    return _adjoint(sino, table, n)
 
 
 @lru_cache(maxsize=16)
@@ -207,15 +243,63 @@ def static_table(theta: Tuple[float, ...], n: int, n_det: int, device: torch.dev
     return torch.as_tensor(angle_table_fused(np.asarray(theta), n, n, n_det), device=device)
 
 
+@lru_cache(maxsize=16)
+def static_rows(theta: Tuple[float, ...], n: int, n_det: int, device: torch.device,
+                forward: bool = False) -> torch.Tensor:
+    """``kernel_rows`` of the full-angle table on ``device`` (for kernel D), or
+    with ``forward`` its ``forward_rows`` (for kernel C), built once per
+    geometry."""
+    rows = kernel_rows(angle_table_fused(np.asarray(theta), n, n, n_det))
+    return torch.as_tensor(forward_rows(rows) if forward else rows, device=device)
+
+
+def _static_forward(image: torch.Tensor, theta: Tuple[float, ...], n_det: int) -> torch.Tensor:
+    n, dev = image.shape[-1], image.device
+    if dev.type == "cpu":
+        return radon_fused_plain(image, static_table(theta, n, n_det, dev), n_det)
+    from ._cuda import joseph_fwd_static
+
+    out = joseph_fwd_static(image, static_rows(theta, n, n_det, dev, True), len(theta), n_det)
+    LAUNCHES["joseph_fwd_static"] += 1
+    return out
+
+
+def _static_adjoint(sino: torch.Tensor, theta: Tuple[float, ...], n: int) -> torch.Tensor:
+    n_det, dev = sino.shape[-1], sino.device
+    if dev.type == "cpu":
+        return radon_fused_adjoint_plain(sino, static_table(theta, n, n_det, dev), n)
+    from ._cuda import joseph_adj_static
+
+    out = joseph_adj_static(sino, static_rows(theta, n, n_det, dev), n)
+    LAUNCHES["joseph_adj_static"] += 1
+    return out
+
+
+class _StaticProject(torch.autograd.Function):
+    """Static-angle projection whose backward is kernel D (the custom VJP of
+    ``radon_pallas``, pallas_radon.py:287-305)."""
+
+    @staticmethod
+    def forward(ctx, image, theta, n_det):
+        ctx.theta, ctx.n = theta, image.shape[-1]
+        return _static_forward(image, theta, n_det)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _static_adjoint(grad.contiguous(), ctx.theta, ctx.n), None, None
+
+
 def radon_static(image: torch.Tensor, theta: Tuple[float, ...], n_det: int) -> torch.Tensor:
     """Static-angle Joseph projection (kernel C), the counterpart of
     ``radon_pallas`` (angles as a tuple, as there): (B, N, N) -> (B, A, n_det).
-    Square images only."""
+    Square images only; differentiable in the image (kernel D backward)."""
     if image.dim() != 3 or image.shape[1] != image.shape[2]:
         raise ValueError(f"radon_static takes square (B, N, N) images, got {tuple(image.shape)}")
-    table = static_table(theta, image.shape[1], n_det, image.device)
-    _check_args(image, table, n_det)
-    return _JosephProject.apply(image, table, n_det, ("joseph_fwd_static", "joseph_adj_static"))
+    if image.dtype != torch.float32:
+        raise TypeError(f"float32 required, got {image.dtype}")
+    if n_det < 1:
+        raise ValueError(f"n_det must be positive, got {n_det}")
+    return _StaticProject.apply(image, theta, n_det)
 
 
 def backproject_static(sino: torch.Tensor, theta: Tuple[float, ...], h: int, w: int) -> torch.Tensor:
@@ -224,5 +308,4 @@ def backproject_static(sino: torch.Tensor, theta: Tuple[float, ...], h: int, w: 
     Square images only."""
     if h != w:
         raise ValueError(f"backproject_static takes square images, got {h} x {w}")
-    table = static_table(theta, h, sino.shape[-1], sino.device)
-    return _adjoint(sino.contiguous(), table, h, "joseph_adj_static")
+    return _static_adjoint(sino.contiguous(), theta, h)

@@ -58,8 +58,8 @@ def _table(n, n_det, n_angles, seed, cuda):
 
 @pytest.mark.parametrize("n, n_det, n_angles, batch", [(32, 48, 12, 3), (128, 184, 20, 20), (184, 184, 180, 32)])
 def test_adjoint_kernel_matches_plain_and_is_the_transpose(cuda, n, n_det, n_angles, batch):
-    """Kernel B (and D, the same entry point on the full table) against its
-    plain version, and <A x, g> = <x, A^T g> between kernels A and B."""
+    """Kernel B against its plain version (also on a full 180-angle table),
+    and <A x, g> = <x, A^T g> between kernels A and B."""
     rng = np.random.default_rng(n)
     table = _table(n, n_det, n_angles, n, cuda)
     g = torch.as_tensor(rng.normal(size=(batch, n_angles, n_det)).astype(np.float32), device=cuda)
@@ -101,6 +101,99 @@ def test_static_pair_and_autograd_on_the_card(cuda):
     assert jr.LAUNCHES["joseph_adj"] == before["joseph_adj"] + 1
     torch.testing.assert_close(img.grad, jr.radon_fused_adjoint_plain(w, table, 128), rtol=1e-5,
                                atol=1e-5 * float(img.grad.abs().max()))
+
+
+def _close(got, want):
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("batch", [32, 8, 4, 1])
+def test_static_kernels_match_plain_and_are_transposes(cuda, batch):
+    """Kernels C and D (csrc/joseph_fwd_static.cu, csrc/joseph_adj_static.cu)
+    at the init stack's shape, (B, 184, 184) x 180 angles, with a full batch
+    chunk and ragged ones (8 and 4 end the init stacks of 1000 and 100
+    scans): against their plain versions, <Cx, g> = <x, Dg>, and
+    radon_static's backward launching D."""
+    theta = tuple(float(t) for t in np.linspace(0, np.pi, 180, endpoint=False).astype(np.float32))
+    rng = np.random.default_rng(batch)
+    x = torch.as_tensor(rng.uniform(0, 1, (batch, 184, 184)).astype(np.float32), device=cuda)
+    g = torch.as_tensor(rng.uniform(0, 1, (batch, 180, 184)).astype(np.float32), device=cuda)
+    table = jr.static_table(theta, 184, 184, cuda)
+    before = dict(jr.LAUNCHES)
+    fwd = jr.radon_static(x, theta, 184)
+    adj = jr.backproject_static(g, theta, 184, 184)
+    torch.cuda.synchronize()
+    assert jr.LAUNCHES["joseph_fwd_static"] == before["joseph_fwd_static"] + 1
+    assert jr.LAUNCHES["joseph_adj_static"] == before["joseph_adj_static"] + 1
+    _close(fwd, jr.radon_fused_plain(x, table, 184))
+    _close(adj, jr.radon_fused_adjoint_plain(g, table, 184))
+    lhs = float((fwd.double() * g.double()).sum())
+    rhs = float((x.double() * adj.double()).sum())
+    assert abs(lhs - rhs) <= 1e-6 * abs(lhs)
+    xg = x.clone().requires_grad_()
+    (jr.radon_static(xg, theta, 184) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert jr.LAUNCHES["joseph_adj_static"] == before["joseph_adj_static"] + 2
+    assert torch.equal(xg.grad, adj)
+
+
+def _at_offset(x, offset):
+    """A contiguous copy of x whose storage starts ``offset`` floats into its
+    allocation (not on 16 bytes for offset 1)."""
+    flat = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    return flat[offset:].view_as(x).copy_(x)
+
+
+@pytest.mark.parametrize("batch, n, n_angles, n_det, offset", [(5, 37, 53, 50, 0), (6, 32, 20, 48, 1)])
+def test_static_kernels_at_odd_shapes_and_offsets(cuda, batch, n, n_angles, n_det, offset):
+    """C and D where they load element by element: n and n_det not multiples
+    of 4 (and batch 5, D's chunk of 8 cut short), or image and sinogram that
+    do not start on 16 bytes; against their plain versions and as transposes."""
+    theta = tuple(float(t) for t in np.linspace(0, np.pi, n_angles, endpoint=False))
+    rng = np.random.default_rng(n)
+    x = _at_offset(torch.as_tensor(rng.uniform(0, 1, (batch, n, n)).astype(np.float32), device=cuda), offset)
+    g = _at_offset(torch.as_tensor(rng.normal(size=(batch, n_angles, n_det)).astype(np.float32),
+                                   device=cuda), offset)
+    assert (x.data_ptr() % 16 != 0) == (offset == 1)
+    table = jr.static_table(theta, n, n_det, cuda)
+    fwd = jr.radon_static(x, theta, n_det)
+    adj = jr.backproject_static(g, theta, n, n)
+    _close(fwd, jr.radon_fused_plain(x, table, n_det))
+    _close(adj, jr.radon_fused_adjoint_plain(g, table, n))
+    lhs = float((fwd.double() * g.double()).sum())
+    rhs = float((x.double() * adj.double()).sum())
+    assert abs(lhs - rhs) <= 1e-6 * abs(lhs)
+
+
+def test_adjoint_kernels_above_1024_angles(cuda):
+    """B and D (and C) at 1200 angles: the kernels stage their tables in
+    chunks, so there is no cap on the angles."""
+    n, n_det, batch = 32, 48, 3
+    theta = tuple(float(t) for t in np.linspace(0, np.pi, 1200, endpoint=False))
+    rng = np.random.default_rng(1200)
+    table = jr.static_table(theta, n, n_det, cuda)
+    g = torch.as_tensor(rng.normal(size=(batch, 1200, n_det)).astype(np.float32), device=cuda)
+    x = torch.as_tensor(rng.uniform(0, 1, (batch, n, n)).astype(np.float32), device=cuda)
+    ref = jr.radon_fused_adjoint_plain(g, table, n)
+    _close(jr.radon_fused_adjoint(g, table, n), ref)
+    _close(jr.backproject_static(g, theta, n, n), ref)
+    _close(jr.radon_static(x, theta, n_det), jr.radon_fused_plain(x, table, n_det))
+
+
+def test_static_kernels_reject_what_they_do_not_take(cuda):
+    from ct_pvae_tpu_torch.ops import _cuda
+
+    theta = (0.0, 1.0)
+    rows = jr.static_rows(theta, 8, 12, cuda)
+    grouped = jr.static_rows(theta, 8, 12, cuda, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        _cuda.joseph_fwd_static(torch.zeros((2, 8, 8), device=cuda).transpose(1, 2), grouped, 2, 12)
+    with pytest.raises(ValueError, match="groups of"):
+        _cuda.joseph_fwd_static(torch.zeros((2, 8, 8), device=cuda), rows, 2, 12)
+    with pytest.raises(ValueError, match="kernel rows"):
+        _cuda.joseph_adj_static(torch.zeros((2, 3, 12), device=cuda), rows, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _cuda.joseph_adj_static(torch.zeros((2, 2, 12)), rows, 8)
 
 
 @pytest.mark.parametrize("b, hw, c, f", [(10, 128, 40, 40), (3, 37, 11, 70)])
