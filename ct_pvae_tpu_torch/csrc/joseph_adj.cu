@@ -1,9 +1,12 @@
-// Adjoint of the fused Joseph projector (backprojection) for Hopper (sm_90a).
+// Adjoint of the fused Joseph projector (backprojection) for Hopper (sm_90a):
+// the first design of kernel B, kept as a yardstick only.  The backward of
+// `radon_fused` runs kernel B on joseph_adj_static.cu; chip_smoke.py and
+// tests/test_torch_cuda.py time and check this one beside it as the old
+// design.
 //
-// Replaces the TPU kernel `_adj_kernel_fused` (ct_pvae_tpu/ops/pallas_radon.py,
-// driven by `_fused_adj_impl`, the VJP of `radon_pallas_fused`).  The
-// static-angle adjoint `_adj_kernel` has its own kernel, D
-// (joseph_adj_static.cu).  For a (B, A, T)
+// It was the port of the TPU kernel `_adj_kernel_fused`
+// (ct_pvae_tpu/ops/pallas_radon.py:487, driven by `_fused_adj_impl`, the VJP
+// of `radon_pallas_fused`).  For a (B, A, T)
 // float32 sinogram g and the (A, 5) table of joseph_fwd.cu it computes the
 // exact transpose of that kernel:
 //

@@ -1,10 +1,15 @@
-// Static-angle Joseph adjoint (backprojection) for Hopper (sm_90a): kernel D.
+// Joseph adjoint (backprojection) for Hopper (sm_90a): kernel D, which also
+// runs kernel B.
 //
-// Replaces the TPU kernel `_adj_kernel` (ct_pvae_tpu/ops/pallas_radon.py:152,
-// driven per major-axis group by `_run_group_adj` :224 behind
-// `backproject_pallas` :308 and the VJP of `radon_pallas`).  For a (B, A, T)
-// float32 sinogram g and the (A, 8) kernel rows of joseph_tap.cuh it
-// computes the exact transpose of kernel C (joseph_fwd_static.cu):
+// Replaces two TPU kernels of ct_pvae_tpu/ops/pallas_radon.py: `_adj_kernel`
+// (:152, driven per major-axis group by `_run_group_adj` :224 behind
+// `backproject_pallas` :308 and the VJP of `radon_pallas`; here behind
+// `backproject_static` and the backward of `radon_static`) and
+// `_adj_kernel_fused` (:487, the VJP of `radon_pallas_fused`; here the
+// backward of `radon_fused` on the train step).  For a (B, A, T) float32
+// sinogram g and (A, 8) kernel rows of joseph_tap.cuh, in any order (the
+// full table for D, the step's angle subset for B: g's angle q is row q),
+// it computes the exact transpose of kernel C (joseph_fwd_static.cu):
 //
 //   img[b, i, j] = sum_a w_a * sum_t g[b, a, t] * max(0, 1 - |y - pos_a(r, t)|)
 //
@@ -12,7 +17,7 @@
 //
 // Design.  The TPU kernel builds one (T, W) hat tile per (angle, line) and
 // applies it to a whole batch tile in one matrix product (P[a, B, :] @ G).
-// The first port (kernel B's entry point fed the full table) ran one thread
+// The first port (csrc/joseph_adj.cu, kept as a yardstick) ran one thread
 // per (b, i, j) and searched the taps again for every image, with a float
 // division and four candidate bins per (pixel, angle).  Here:
 //
@@ -46,7 +51,9 @@
 //    latency hides behind the compute.  The tile reads each staged bin
 //    about 8 + 32 times.
 //  * tests/test_torch_static_taps.py holds the bins against every tap of the
-//    forward and the band against every bin, on the paper geometry.
+//    forward and the band against every bin, on the init geometry (184^2
+//    onto 184 bins), the recon geometry of A and B (128^2 onto 184 bins,
+//    all angles and a 20-angle subset) and edge tables.
 //
 // Exact float32 fmaf on the CUDA cores (no TF32, no tensor cores), one fixed
 // order per pixel (angle, then bin); no atomics, deterministic.
@@ -57,7 +64,9 @@
 // every tap of every image is a float read from shared memory for one fmaf,
 // so the kernel is bound by shared-memory bandwidth (128 bytes a clock per
 // SM: about 0.05 ms for the two bins per pixel and angle at that shape) and
-// by the issue slots of the tap search and the staging.
+// by the issue slots of the tap search and the staging.  At B's shape
+// ((20, 20, 184) -> (20, 128, 128)) the bound is 0.00048 ms, by bytes, and
+// a launch's own latency is far above it.
 //
 // C interface for ctypes: pointers and the stream as void*, sizes as int;
 // returns cudaGetLastError() after the launch.  The caller allocates `img`.
@@ -70,8 +79,11 @@
 
 namespace {
 
-// Batch images per thread for a batch of `batch`: 4, 8 or 16.
-int batch_chunk(int batch) { return batch <= 4 ? 4 : batch <= 8 ? 8 : 16; }
+// Batch images per thread for a batch of `batch`: 4, 8 or 16.  At the train
+// step's 20 images a sweep on an H100 found 8 (three chunks) faster than 4
+// and than 16, whose second chunk is three quarters empty; the init stack's
+// batches of 32 take 16.
+int batch_chunk(int batch) { return batch <= 4 ? 4 : batch <= 24 ? 8 : 16; }
 
 constexpr int kTileJ = 32;   // pixels along a row per block (blockDim.x)
 constexpr int kTileI = 8;    // rows per block (blockDim.y)

@@ -1,7 +1,11 @@
-// Fused Joseph forward projector for Hopper (sm_90a).
+// Fused Joseph forward projector for Hopper (sm_90a): the first design of
+// kernel A, kept as a yardstick only.  `radon_fused` runs kernel A on
+// joseph_fwd_static.cu; chip_smoke.py and tests/test_torch_cuda.py time and
+// check this one beside it as the old design.
 //
-// Replaces the TPU kernel `_fwd_kernel_fused` (ct_pvae_tpu/ops/pallas_radon.py,
-// driven by `_fused_fwd_impl` / `radon_pallas_fused`).  It computes, for a
+// It was the port of the TPU kernel `_fwd_kernel_fused`
+// (ct_pvae_tpu/ops/pallas_radon.py:455, driven by `_fused_fwd_impl` /
+// `radon_pallas_fused`).  It computes, for a
 // square (B, N, N) float32 image and an (A, 5) table of per-angle rows
 // (slope_t, slope_r, offset, weight, is_y):
 //

@@ -1,33 +1,48 @@
-// Static-angle Joseph forward projector for Hopper (sm_90a): kernel C.
+// Joseph forward projector for Hopper (sm_90a): kernel C, which also runs
+// kernel A.
 //
-// Replaces the TPU kernel `_fwd_kernel` (ct_pvae_tpu/ops/pallas_radon.py:124,
-// driven per major-axis group by `_run_group` :187 behind `radon_pallas`
-// :261).  For a square (B, N, N) float32 image and (A', 8) kernel rows of
-// joseph_tap.cuh, grouped by major axis (`forward_rows` in
-// ops/joseph_radon.py), it computes
+// Replaces two TPU kernels of ct_pvae_tpu/ops/pallas_radon.py: `_fwd_kernel`
+// (:124, driven per major-axis group by `_run_group` :187 behind
+// `radon_pallas` :261; here behind `radon_static`) and `_fwd_kernel_fused`
+// (:455, over a traced angle subset behind `radon_pallas_fused`; here
+// behind `radon_fused`, on the serve and the train step).  On the TPU the
+// two differ because Pallas bakes static angles into the kernel; here both
+// read their angles from a table in device memory, so one kernel serves
+// both.  For a square (B, N, N) float32 image and (A, 8) kernel rows of
+// joseph_tap.cuh, in any order, it computes
 //
 //   out[b, a, t] = w_a * sum_r sum_y src[b, r, y] * max(0, 1 - |y - pos_a(r, t)|)
 //
 // with src the image for an x-major row (is_y 0) and its transpose for a
 // y-major row (is_y 1), two taps per line (y0 = floor(pos) and y0 + 1).
+// Output angle a is the row's position in the call: the full table for C,
+// the step's angle subset (`index_select` of the full table's rows) for A.
 //
-// Design.  The TPU kernel holds a batch tile of images in VMEM and, per
-// angle, builds one (W, T) hat tile per line and applies it to the whole
-// batch tile in one matrix product.  The first port (kernel A's entry point
-// fed the full table) ran one thread per (b, a, t): it found the same taps
-// again for every image, read down a column of the image for the y-major
-// half of the angles, and read the whole batch of images again from L2 for
-// every angle (180 x 4.3 MB at the init shape).  Here:
+// Design.  The TPU kernels hold a batch tile of images in VMEM and, per
+// angle, build one (W, T) hat tile per line and apply it to the whole batch
+// tile in one matrix product.  The first port (csrc/joseph_fwd.cu, kept as
+// a yardstick) ran one thread per (b, a, t): it found the same taps again
+// for every image, read down a column of the image for the y-major half of
+// the angles, and read the whole batch of images again from L2 for every
+// angle.  Here:
 //
-//  * A block owns 8 or 16 kernel rows of one major axis (the rows come
-//    grouped, padded with empty rows), a tile of at most kMaxTile detector
-//    bins, a chunk of 4 batch images and one half of the image's lines; a
-//    thread owns one bin t and one or two of the rows (two for batches
-//    above 4: more angles per staged slab; one below: more blocks), and keeps
-//    each ray's sums for the 4 images in a float4.  Two blocks split each
-//    ray's lines and add their halves into the zeroed output with
+//  * A block owns 8 or 16 rows of one major axis, a tile of at most
+//    kMaxTile detector bins, a chunk of 4 batch images and one half of the
+//    image's lines; a thread owns one bin t and one or two of the rows, and
+//    keeps each ray's sums for the 4 images in a float4.  Two blocks split
+//    each ray's lines and add their halves into the zeroed output with
 //    atomicAdd: two terms added to zero give the same sum in either order,
 //    so the result stays deterministic.
+//  * The block finds its rows itself: it counts the x-major rows of the
+//    call (`__syncthreads_count`), takes the k-th group of its axis, and
+//    finds the positions of that group's rows by a prefix count over the
+//    call (warp ballots).  So the rows come as the caller selected them:
+//    no host work, no extra launch, and a group may hold fewer rows than
+//    the block (its empty rows are never written).
+//    A variant whose halves (or quarters, for few rows) met in a thread
+//    block cluster and were added in shared memory, into an output that
+//    needs no zeroing, was slower than the atomics and the zeroing together
+//    at the init, serve and train shapes.
 //  * The block walks its lines in slabs of up to 32 lines (at most 96 KB of
 //    shared memory).  It stages each slab once, batch-innermost, from the
 //    image for x-major rows or from its transpose for y-major rows: the
@@ -35,12 +50,19 @@
 //    images per thread, transposed in registers), so no transposed copy is
 //    made; all the block's rays read the slab, so it is read from L2 once
 //    per 8 or 16 angles and detector tile.
-//  * For each line a ray finds its two taps once (`joseph_pos`, floor, two
-//    hats) and applies each to the 4 images: one float4 load from shared
+//  * For each line a ray finds its two taps once (`joseph_pos`,
+//    `joseph_floor_hats`) and applies each to the 4 images: one float4 load from shared
 //    memory and 4 fmaf.  A warp's 32 neighbouring rays read neighbouring
 //    float4s of one staged line, for either major axis.  Each staged line
 //    sits between zeros, so a tap off the image reads 0 and adds exactly
 //    nothing, and the loop has no branch.
+//  * Launch shape by the call: 16 rows a block (two rays a thread) for
+//    batches above 4 and at least kFewRows rows, so a slab serves 16
+//    angles; 8 rows for the rest (the train step's 20 rows among them),
+//    for more blocks.
+//  * At most 768 threads a block (tiles of up to 96 bins), so that a thread
+//    may hold 80 registers: at 1024 threads (64 registers) the two-ray
+//    instantiations spilled 40-48 bytes.
 //
 // Exact float32 fmaf on the CUDA cores (no TF32, no tensor cores), one fixed
 // order per half ray (line, then tap y0, then y0 + 1, as the plain version).
@@ -48,10 +70,13 @@
 // Bound.  At the init stack's shape ((32, 184, 184) x 180 angles -> 184
 // detector bins) the in-range taps need 663,503,360 flops, 0.0099 ms at 67
 // TFLOP/s, and 8.6 MB of traffic, 0.0026 ms at 3.35 TB/s: bound by
-// operations on paper.  Here every tap of every image is a float read from
+// operations on paper; at the serve shape ((20, 128, 128) x 180 -> 184)
+// 0.0032 ms, by operations; at the train shape (20 of the 180 angles)
+// 0.00048 ms, by bytes.  Here every tap of every image is a float read from
 // shared memory for one fmaf, so the kernel is bound by shared-memory
 // bandwidth (128 bytes a clock per SM: about 0.06 ms for the two taps per
-// ray and line at that shape) and by the issue slots of the tap search.
+// ray and line at the init shape) and by the issue slots of the tap search;
+// at the train shape, by the latency of one launch.
 //
 // C interface for ctypes: pointers and the stream as void*, sizes as int;
 // returns cudaGetLastError() after the launch.  The caller allocates `out`
@@ -69,17 +94,20 @@ namespace {
 
 constexpr int kChunk = 4;               // batch images per block: one float4
 constexpr int kRowsY = 8;               // threadIdx.y
-constexpr int kMaxTile = 128;           // detector bins per block: threadIdx.x
+constexpr int kMaxTile = 96;            // detector bins per block: threadIdx.x
+constexpr int kMaxWarps = kRowsY * kMaxTile / 32;
 constexpr int kMaxSlabRows = 32;
 constexpr int kSlabBytes = 96 * 1024;   // dynamic shared memory for a slab
 constexpr int kUnits = 2;               // staging units a thread keeps in flight
 constexpr int kRowParts = 2;            // blocks that split a ray's lines
+constexpr int kFewRows = 64;            // below this many rows: one ray a thread
 
 // float4s per staged line: the line at [2, n + 2) between two zero float4s
 // on each side, so that taps off the image read zeros, and an odd count, so
 // that neighbouring lines' stores in the transposed staging hit different
 // bank groups
 __host__ __device__ inline int line_stride(int n) { return (n + 4) | 1; }
+
 
 // A slab is staged in units of 4 pixels x 4 images, loaded along the
 // images' rows (x-major rows: line rr is image row r0 + rr; unit u = (rr,
@@ -131,23 +159,64 @@ struct SlabUnits {
   }
 };
 
-// kRays rays (kernel rows) per thread: 2 for batches above 4, so that a
-// slab serves 16 angles; 1 for the rest, for more blocks.
+__device__ __forceinline__ bool row_is_y(const float* rows, int q) {
+  return __ldg(rows + kRowFloats * q + 4) > 0.5f;
+}
+
+// kRays rays (rows) per thread.
 template <int kRays>
 __global__ void __launch_bounds__(kRowsY * kMaxTile) joseph_fwd_static_kernel(
     const float* __restrict__ img, const float* __restrict__ rows, float* __restrict__ out,
-    int batch, int n, int n_angles, int n_det, int slab_rows) {
-  constexpr int kAngles = kRays * kRowsY;  // kernel rows per block
+    int batch, int n, int n_rows, int n_det, int slab_rows) {
+  constexpr int kAngles = kRays * kRowsY;  // rows per block
   extern __shared__ float4 slab[];  // [line][pixel + 2], a float4 of 4 images each
-  __shared__ float4 tab[2 * kAngles];
+  __shared__ float4 tab[kAngles];   // slope_t, slope_r, offset, weight of the block's rows
+  __shared__ int angle[kAngles];    // their positions in the call: the output angles
+  __shared__ int warp_rows[kMaxWarps];
 
   const int threads = blockDim.x * kRowsY;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+
+  // The block's rows: group blockIdx.y of the x-major rows, then of the
+  // y-major ones.
+  int nx = 0;
+  for (int c0 = 0; c0 < n_rows; c0 += threads) {
+    const int q = c0 + tid;
+    nx += __syncthreads_count(q < n_rows && !row_is_y(rows, q));
+  }
+  const int groups_x = (nx + kAngles - 1) / kAngles;
+  const bool is_y = static_cast<int>(blockIdx.y) >= groups_x;
+  const int first = (is_y ? blockIdx.y - groups_x : blockIdx.y) * kAngles;
+  const int live = min(kAngles, (is_y ? n_rows - nx : nx) - first);
+  if (live <= 0) return;  // a spare group
+  // positions of the rows of this axis ranked first .. first + live - 1
+  int before = 0;  // rows of this axis in the chunks before
+  for (int c0 = 0; c0 < n_rows && before < first + live; c0 += threads) {
+    const int q = c0 + tid;
+    const bool mine = q < n_rows && row_is_y(rows, q) == is_y;
+    const unsigned ballot = __ballot_sync(0xffffffffu, mine);
+    if (lane == 0) warp_rows[warp] = __popc(ballot);
+    __syncthreads();
+    int rank = before + __popc(ballot & ((1u << lane) - 1u));
+    for (int w = 0; w < threads / 32; ++w) {
+      const int c = warp_rows[w];
+      rank += w < warp ? c : 0;
+      before += c;
+    }
+    if (mine && rank >= first && rank < first + live) angle[rank - first] = q;
+    __syncthreads();  // warp_rows is read before the next chunk writes it
+  }
+  if (tid < kAngles) {  // an empty row's taps all fall off the image
+    tab[tid] = tid < live ? __ldg(reinterpret_cast<const float4*>(rows + kRowFloats * angle[tid]))
+                          : make_float4(1.0f, 0.0f, -1e9f, 0.0f);
+  }
+
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int b0 = blockIdx.z / kRowParts * kChunk;
   const int nb = min(kChunk, batch - b0);
   // this block's lines: the first or the second half (a multiple of 4)
-  const int half = (n / kRowParts + 3) / 4 * 4;
+  const int half = ((n + 1) / kRowParts + 3) / 4 * 4;
   const int row_begin = blockIdx.z % kRowParts * half;
   const int row_end = min(n, row_begin + half);
   const int len = line_stride(n);
@@ -155,38 +224,35 @@ __global__ void __launch_bounds__(kRowsY * kMaxTile) joseph_fwd_static_kernel(
   const float* src = img + b0 * plane;
   const bool vec = vec_loads(img, n);
 
-  if (tid < 2 * kAngles) {
-    tab[tid] = __ldg(reinterpret_cast<const float4*>(rows + kRowFloats * blockIdx.y * kAngles) + tid);
-  }
   for (int k = tid; k < slab_rows * 4; k += threads) {  // the zeros around each line
     const int col = k % 4;
     slab[(k / 4) * len + (col < 2 ? col : n + col)] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   __syncthreads();
-  const bool is_y = tab[1].x > 0.5f;  // the block's rows share one major axis
   const float tf = static_cast<float>(t);
   float4 lo[kRays], acc[kRays];  // the thread's rows: threadIdx.y + kRowsY * m
 #pragma unroll
   for (int m = 0; m < kRays; ++m) {
-    lo[m] = tab[2 * (threadIdx.y + kRowsY * m)];  // slope_t, slope_r, offset, weight
+    lo[m] = tab[threadIdx.y + kRowsY * m];  // slope_t, slope_r, offset (weight at the end)
     acc[m] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
+  // a warp whose rows are all empty only stages
+  const bool busy = t < n_det && static_cast<int>(threadIdx.y) < live;
 
   for (int r0 = row_begin; r0 < row_end; r0 += slab_rows) {
     const int lines = min(slab_rows, row_end - r0);
     __syncthreads();  // every thread is done with the previous slab
     SlabUnits(src, plane, n, nb, vec, is_y, r0, lines).stage(slab, len, tid, threads);
     __syncthreads();
-    if (t >= n_det) continue;
+    if (!busy) continue;
     for (int rr = 0; rr < lines; ++rr) {
 #pragma unroll
       for (int m = 0; m < kRays; ++m) {
         const float pos = joseph_pos(lo[m].x, lo[m].y, lo[m].z, tf, static_cast<float>(r0 + rr));
-        const float y0f = floorf(pos);
+        float h0, h1;
+        const float y0f = joseph_floor_hats(pos, h0, h1);
         // taps off the image read the zeros: no branch
         const int y0 = min(max(static_cast<int>(y0f), -2), n);
-        const float h0 = joseph_hat(y0f, pos);
-        const float h1 = joseph_hat(y0f + 1.0f, pos);
         const float4 a = slab[rr * len + y0 + 2];
         const float4 b = slab[rr * len + y0 + 3];
         acc[m].x = fmaf(b.x, h1, fmaf(a.x, h0, acc[m].x));
@@ -196,18 +262,19 @@ __global__ void __launch_bounds__(kRowsY * kMaxTile) joseph_fwd_static_kernel(
       }
     }
   }
-  if (t >= n_det) return;
-  const size_t image = static_cast<size_t>(n_angles) * n_det;
+
+  if (!busy) return;
+  const size_t image = static_cast<size_t>(n_rows) * n_det;
 #pragma unroll
   for (int m = 0; m < kRays; ++m) {
     const int q = threadIdx.y + kRowsY * m;
-    const int a = static_cast<int>(tab[2 * q + 1].z);  // the row's angle; -1: an empty row
-    if (a < 0) continue;
-    float* o = out + (static_cast<size_t>(b0) * n_angles + a) * n_det + t;
+    if (q >= live) continue;  // an empty row
+    float* o = out + (static_cast<size_t>(b0) * n_rows + angle[q]) * n_det + t;
+    const float weight = tab[q].w;
     const float sums[kChunk] = {acc[m].x, acc[m].y, acc[m].z, acc[m].w};
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
-      if (k < nb) atomicAdd(o + k * image, sums[k] * lo[m].w);
+      if (k < nb) atomicAdd(o + k * image, sums[k] * weight);
     }
   }
 }
@@ -231,7 +298,7 @@ cudaError_t allow_slab() {
 
 template <int kRays>
 int launch(const float* img, const float* rows, float* out, int batch, int n, int n_rows,
-           int n_angles, int n_det, cudaStream_t stream) {
+           int n_det, cudaStream_t stream) {
   constexpr int kAngles = kRays * kRowsY;
   const cudaError_t attr = allow_slab<kRays>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -239,24 +306,28 @@ int launch(const float* img, const float* rows, float* out, int batch, int n, in
   const dim3 block(((n_det + tiles - 1) / tiles + 31) / 32 * 32, kRowsY);
   const int line_bytes = line_stride(n) * static_cast<int>(sizeof(float4));
   const int slab_rows = std::min(kMaxSlabRows, kSlabBytes / line_bytes) / 4 * 4;  // in fours
-  if (slab_rows < 4 || n_rows % kAngles) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(tiles, n_rows / kAngles, (batch + kChunk - 1) / kChunk * kRowParts);
+  if (slab_rows < 4) return static_cast<int>(cudaErrorInvalidValue);
+  // every group of each axis, and one spare: the split between the axes is
+  // found on the device
+  const dim3 grid(tiles, (n_rows + kAngles - 1) / kAngles + 1,
+                  (batch + kChunk - 1) / kChunk * kRowParts);
   joseph_fwd_static_kernel<kRays><<<grid, block, slab_rows * line_bytes, stream>>>(
-      img, rows, out, batch, n, n_angles, n_det, slab_rows);
+      img, rows, out, batch, n, n_rows, n_det, slab_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// `rows` holds n_rows kernel rows, a multiple of 16; their angle indices are
-// < n_angles, the output's angle count.  `out` must hold zeros: the two
-// halves of each ray's lines add into it.
+// `rows` holds n_rows kernel rows; `out` is (batch, n_rows, n_det) and must
+// hold zeros: the two halves of each ray's lines add into it.  The launch
+// shape follows the rule above: one ray a thread at batches up to 4 or
+// below kFewRows rows, two otherwise.
 extern "C" int joseph_fwd_static(const void* img, const void* rows, void* out, int batch, int n,
-                                 int n_rows, int n_angles, int n_det, void* stream) {
+                                 int n_rows, int n_det, void* stream) {
   const auto* x = static_cast<const float*>(img);
   const auto* r = static_cast<const float*>(rows);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (batch <= 4) return launch<1>(x, r, o, batch, n, n_rows, n_angles, n_det, s);
-  return launch<2>(x, r, o, batch, n, n_rows, n_angles, n_det, s);
+  if (batch <= 4 || n_rows < kFewRows) return launch<1>(x, r, o, batch, n, n_rows, n_det, s);
+  return launch<2>(x, r, o, batch, n, n_rows, n_det, s);
 }

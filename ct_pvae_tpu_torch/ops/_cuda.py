@@ -29,10 +29,8 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# kernel C's rows come in groups of 16 (its blocks take 8 or 16), and the
-# largest image it stages: four lines of n + 5 pixels x 4 images in its 96 KB
-# slab
-FWD_STATIC_ROWS_PER_BLOCK = 16
+# the largest image kernel C stages: four lines of n + 5 pixels x 4 images in
+# its 96 KB slab
 FWD_STATIC_MAX_N = 96 * 1024 // (4 * 16) - 5
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -54,14 +52,13 @@ def _nvcc() -> str:
 
 
 # C signatures of the libraries' entry points: (name, argtypes, restype).
-# The Joseph kernels take (input, table, output, batch, n, n_angles, n_det,
-# stream); kernel C takes its row count before n_angles.
+# The Joseph kernels take (input, table or rows, output, batch, n, n_angles,
+# n_det, stream); each picks its launch shape from the sizes.
 _JOSEPH_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
-_JOSEPH_FWD_STATIC_ARGS = [*_JOSEPH_ARGS[:5], ctypes.c_int, *_JOSEPH_ARGS[5:]]
 # (x, kern, bias, out, batch, h, w, c_in, f_out, stream)
 _CONV_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -71,7 +68,7 @@ _CONV_ARGS = [
 _SIGNATURES = {
     "joseph_fwd": [("joseph_fwd", _JOSEPH_ARGS, ctypes.c_int)],
     "joseph_adj": [("joseph_adj", _JOSEPH_ARGS, ctypes.c_int)],
-    "joseph_fwd_static": [("joseph_fwd_static", _JOSEPH_FWD_STATIC_ARGS, ctypes.c_int)],
+    "joseph_fwd_static": [("joseph_fwd_static", _JOSEPH_ARGS, ctypes.c_int)],
     "joseph_adj_static": [("joseph_adj_static", _JOSEPH_ARGS, ctypes.c_int)],
     "conv_fused": [("conv_fused_maxout", _CONV_ARGS, ctypes.c_int)],
 }
@@ -149,7 +146,8 @@ def _check_grid(ok: bool, **sizes: int) -> None:
 
 
 def joseph_fwd(image: torch.Tensor, table: torch.Tensor, n_det: int) -> torch.Tensor:
-    """Launch the fused Joseph kernel on CUDA tensors: (B, N, N) x (A, 5) -> (B, A, n_det)."""
+    """Launch the first design of kernel A (``csrc/joseph_fwd.cu``, a yardstick:
+    no path calls it) on CUDA tensors: (B, N, N) x (A, 5) -> (B, A, n_det)."""
     _check_cuda_f32(image=image, table=table)
     b, n, n2 = image.shape
     a = table.shape[0]
@@ -164,7 +162,8 @@ def joseph_fwd(image: torch.Tensor, table: torch.Tensor, n_det: int) -> torch.Te
 
 
 def joseph_adj(sino: torch.Tensor, table: torch.Tensor, n: int) -> torch.Tensor:
-    """Launch the Joseph adjoint kernel on CUDA tensors: (B, A, T) x (A, 5) -> (B, n, n).
+    """Launch the first design of kernel B (``csrc/joseph_adj.cu``, a yardstick:
+    no path calls it) on CUDA tensors: (B, A, T) x (A, 5) -> (B, n, n).
     Any number of angles: the kernel stages the table in chunks."""
     _check_cuda_f32(sino=sino, table=table)
     b, a, n_det = sino.shape
@@ -184,32 +183,31 @@ def _check_rows(rows: torch.Tensor, n_rows: int) -> None:
         raise ValueError("kernel rows must be 16-byte aligned (read as float4)")
 
 
-def joseph_fwd_static(image: torch.Tensor, rows: torch.Tensor, n_angles: int,
-                      n_det: int) -> torch.Tensor:
-    """Launch kernel C on CUDA tensors: (B, N, N) x (A', 8) kernel rows grouped
-    by major axis (``joseph_radon.forward_rows``) -> (B, n_angles, n_det)."""
+def joseph_fwd_static(image: torch.Tensor, rows: torch.Tensor, n_det: int) -> torch.Tensor:
+    """Launch the forward kernel (C, and A) on CUDA tensors: (B, N, N) x (A, 8)
+    kernel rows in any order -> (B, A, n_det), output angle a from row a."""
     _check_cuda_f32(image=image, rows=rows)
     b, n, n2 = image.shape
     if n != n2:
         raise ValueError(f"image must be (B, N, N), got {tuple(image.shape)}")
-    n_rows = rows.shape[0]
-    _check_rows(rows, n_rows)
-    if n_rows % FWD_STATIC_ROWS_PER_BLOCK or n > FWD_STATIC_MAX_N:
-        raise ValueError(f"kernel C takes rows in groups of {FWD_STATIC_ROWS_PER_BLOCK} and "
-                         f"images up to {FWD_STATIC_MAX_N} pixels: {n_rows} rows, n {n}")
-    # grid (detector tiles, row groups, batch chunks of 4 x halves of the lines)
-    _check_grid(0 < n_rows <= 65535 * FWD_STATIC_ROWS_PER_BLOCK and 0 < b and -(-b // 4) * 2 <= 65535
-                and n > 0 and n_angles > 0 and n_det > 0,
-                batch=b, rows=n_rows, n=n, n_det=n_det)
-    out = torch.zeros((b, n_angles, n_det), dtype=torch.float32, device=image.device)
+    a = rows.shape[0]
+    _check_rows(rows, a)
+    if n > FWD_STATIC_MAX_N:
+        raise ValueError(f"kernel C takes images up to {FWD_STATIC_MAX_N} pixels, got {n}")
+    # grid (detector tiles, row groups of 8 or 16 and a spare, batch chunks
+    # of 4 x halves of the lines)
+    _check_grid(0 < a <= 8 * 65534 and 0 < b and -(-b // 4) * 2 <= 65535 and n > 0 and n_det > 0,
+                batch=b, rows=a, n=n, n_det=n_det)
+    out = torch.zeros((b, a, n_det), dtype=torch.float32, device=image.device)
     _call("joseph_fwd_static", image.device, image.data_ptr(), rows.data_ptr(), out.data_ptr(),
-          b, n, n_rows, n_angles, n_det)
+          b, n, a, n_det)
     return out
 
 
 def joseph_adj_static(sino: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
-    """Launch kernel D on CUDA tensors: (B, A, T) x (A, 8) kernel rows -> (B, n, n).
-    Any number of angles: the kernel stages the rows in chunks."""
+    """Launch the adjoint kernel (D, and B) on CUDA tensors: (B, A, T) x (A, 8)
+    kernel rows -> (B, n, n), sinogram angle a against row a.  Any number of
+    angles: the kernel stages the rows in chunks."""
     _check_cuda_f32(sino=sino, rows=rows)
     b, a, n_det = sino.shape
     _check_rows(rows, a)

@@ -13,24 +13,24 @@ two non-zeros per (row, detector): y0 = floor(pos) with weight 1-f and y0+1
 with weight f; pixels outside [0, N) count as zero.  Both the CUDA kernels
 and the plain versions here use that two-tap form.
 
-  * kernel A, ``csrc/joseph_fwd.cu``: the forward over a traced angle subset
-    (``_fwd_kernel_fused``);
-  * kernel B, ``csrc/joseph_adj.cu``: its exact transpose
-    (``_adj_kernel_fused``), the backward of the ``torch.autograd.Function``
-    behind ``radon_fused``;
-  * kernel C, ``csrc/joseph_fwd_static.cu``: the static-angle forward
-    (``_fwd_kernel``, behind ``radon_pallas``) on the full-angle table,
-    behind ``radon_static``;
-  * kernel D, ``csrc/joseph_adj_static.cu``: its exact transpose
-    (``_adj_kernel``, behind ``backproject_pallas``), behind
-    ``backproject_static`` and the backward of ``radon_static``.
+The TPU has two kernel pairs because Pallas bakes static angles into a
+kernel; on the card both pairs read their angles from device memory, so
+one pair of CUDA kernels runs all four:
 
-On the full table the row's flag does what the TPU code does by splitting
-the angles into two major-axis groups.  C and D find each tap once for a
-chunk of batch images and read (A, 8) kernel rows (``kernel_rows``: the
-table, 1/slope_t and the angle index; C's grouped by major axis,
-``forward_rows``); their taps come from one expression in
-``csrc/joseph_tap.cuh``.
+  * ``csrc/joseph_fwd_static.cu``: the forward, as kernel A (``radon_fused``
+    over a traced angle subset, ``_fwd_kernel_fused``) and as kernel C
+    (``radon_static`` on the full table, ``_fwd_kernel``);
+  * ``csrc/joseph_adj_static.cu``: its exact transpose, as kernel B (the
+    backward of ``radon_fused``, ``_adj_kernel_fused``) and as kernel D
+    (``backproject_static`` and the backward of ``radon_static``,
+    ``_adj_kernel``).
+
+Both find each tap once for a chunk of batch images, read (A, 8) kernel
+rows (``kernel_rows``: the table and 1/slope_t) in the caller's order, and
+take their taps from one expression in ``csrc/joseph_tap.cuh``.  The
+forward groups the rows by major axis itself, on the device.  The first
+designs of A and B (``csrc/joseph_fwd.cu``, ``csrc/joseph_adj.cu``) stay
+only as yardsticks for ``chip_smoke.py`` and the ``cuda`` tests.
 
 A CUDA tensor goes through the kernels, a CPU tensor through the plain
 versions; there is no fallback between the two.  ``LAUNCHES`` counts kernel
@@ -45,10 +45,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ._cuda import FWD_STATIC_ROWS_PER_BLOCK
-
-# Kernel launches: A and B through ``radon_fused``, C and D through
-# ``radon_static`` (and its backward) / ``backproject_static``.
+# Kernel launches: A and B through ``radon_fused`` (and its backward), C
+# and D through ``radon_static`` (and its backward) / ``backproject_static``.
 LAUNCHES = {"joseph_fwd": 0, "joseph_adj": 0, "joseph_fwd_static": 0, "joseph_adj_static": 0}
 
 
@@ -89,36 +87,20 @@ def angle_table_fused(theta: np.ndarray, h: int, w: int, n_det: int) -> np.ndarr
 
 
 def kernel_rows(table: np.ndarray) -> np.ndarray:
-    """(A, 8) float32 rows of kernels C and D, 32 bytes a row: the (A, 5)
-    table, 1/slope_t (computed in float64, rounded once), the row's angle
-    index and a zero."""
+    """(A, 8) float32 kernel rows, 32 bytes a row: the (A, 5) table,
+    1/slope_t (computed in float64, rounded once) and two zeros."""
     table = np.asarray(table, np.float32)
     rows = np.zeros((len(table), 8), np.float32)
     rows[:, :5] = table
     rows[:, 5] = 1.0 / table[:, 0].astype(np.float64)
-    rows[:, 6] = np.arange(len(table))
     return rows
-
-
-def forward_rows(rows: np.ndarray) -> np.ndarray:
-    """Kernel C's rows: the x-major rows, then the y-major ones, each group
-    padded to a multiple of ``FWD_STATIC_ROWS_PER_BLOCK`` with empty rows (angle index -1,
-    weight 0, an offset that puts every tap off the image), so that a
-    block's rows read one source, as the TPU code's two groups do."""
-    parts = []
-    for flag in (0.0, 1.0):
-        group = rows[rows[:, 4] == flag]
-        empty = np.zeros((-len(group) % FWD_STATIC_ROWS_PER_BLOCK, 8), np.float32)
-        empty[:, [0, 2, 4, 5, 6]] = (1.0, -1e9, flag, 1.0, -1.0)
-        parts += [group, empty]
-    return np.concatenate(parts)
 
 
 def _check_args(image: torch.Tensor, table: torch.Tensor, n_det: int) -> None:
     if image.dim() != 3 or image.shape[1] != image.shape[2]:
         raise ValueError(f"image must be (B, N, N), got {tuple(image.shape)}")
-    if table.dim() != 2 or table.shape[1] != 5:
-        raise ValueError(f"table must be (A, 5), got {tuple(table.shape)}")
+    if table.dim() != 2 or table.shape[1] not in (5, 8):
+        raise ValueError(f"table must be (A, 5), or (A, 8) kernel rows, got {tuple(table.shape)}")
     if image.dtype != torch.float32 or table.dtype != torch.float32:
         raise TypeError(f"float32 required, got {image.dtype} and {table.dtype}")
     if image.device != table.device:
@@ -188,52 +170,57 @@ def radon_fused_adjoint_plain(sino: torch.Tensor, table: torch.Tensor, n: int) -
     return out.reshape(b, n, n)
 
 
-def _forward(image: torch.Tensor, table: torch.Tensor, n_det: int) -> torch.Tensor:
+def _forward(image: torch.Tensor, rows: torch.Tensor, n_det: int) -> torch.Tensor:
     if image.device.type == "cpu":
-        return radon_fused_plain(image, table, n_det)
-    from ._cuda import joseph_fwd
+        return radon_fused_plain(image, rows[:, :5], n_det)
+    from ._cuda import joseph_fwd_static
 
-    out = joseph_fwd(image, table, n_det)  # checks its inputs; raises off CUDA
+    out = joseph_fwd_static(image, rows, n_det)  # checks its inputs; raises off CUDA
     LAUNCHES["joseph_fwd"] += 1
     return out
 
 
-def _adjoint(sino: torch.Tensor, table: torch.Tensor, n: int) -> torch.Tensor:
+def _adjoint(sino: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
     if sino.device.type == "cpu":
-        return radon_fused_adjoint_plain(sino, table, n)
-    from ._cuda import joseph_adj
+        return radon_fused_adjoint_plain(sino, rows[:, :5], n)
+    from ._cuda import joseph_adj_static
 
-    out = joseph_adj(sino, table, n)
+    out = joseph_adj_static(sino, rows, n)
     LAUNCHES["joseph_adj"] += 1
     return out
 
 
 class _JosephProject(torch.autograd.Function):
     """Projection whose backward is the adjoint kernel (the custom VJP of
-    ``radon_pallas_fused``, pallas_radon.py:619-628); the table gets no
+    ``radon_pallas_fused``, pallas_radon.py:619-628); the rows get no
     gradient."""
 
     @staticmethod
-    def forward(ctx, image, table, n_det):
-        ctx.save_for_backward(table)
+    def forward(ctx, image, rows, n_det):
+        ctx.save_for_backward(rows)
         ctx.n = image.shape[-1]
-        return _forward(image, table, n_det)
+        return _forward(image, rows, n_det)
 
     @staticmethod
     def backward(ctx, grad):
-        (table,) = ctx.saved_tensors
-        return _adjoint(grad.contiguous(), table, ctx.n), None, None
+        (rows,) = ctx.saved_tensors
+        return _adjoint(grad.contiguous(), rows, ctx.n), None, None
 
 
 def radon_fused(image: torch.Tensor, table: torch.Tensor, n_det: int) -> torch.Tensor:
-    """Fused Joseph projection (B, N, N) x (A, 5) -> (B, A, n_det), differentiable
-    in the image: kernel A forward, kernel B backward."""
+    """Fused Joseph projection (B, N, N) x (A, 8) -> (B, A, n_det), differentiable
+    in the image: kernel A forward, kernel B backward.  ``table`` holds the
+    (A, 8) kernel rows of the call's angles (``kernel_rows``), as the serve
+    and train steps pass them; the kernels' wrappers refuse anything else.
+    On a CPU tensor the (A, 5) table is also taken, since the plain versions
+    read only its first five columns."""
     _check_args(image, table, n_det)
     return _JosephProject.apply(image, table, n_det)
 
 
 def radon_fused_adjoint(sino: torch.Tensor, table: torch.Tensor, n: int) -> torch.Tensor:
-    """Kernel B alone: the exact adjoint of ``radon_fused``, (B, A, T) -> (B, n, n)."""
+    """Kernel B alone: the exact adjoint of ``radon_fused``, (B, A, T) -> (B, n, n);
+    ``table`` as there."""
     return _adjoint(sino, table, n)
 
 
@@ -244,13 +231,11 @@ def static_table(theta: Tuple[float, ...], n: int, n_det: int, device: torch.dev
 
 
 @lru_cache(maxsize=16)
-def static_rows(theta: Tuple[float, ...], n: int, n_det: int, device: torch.device,
-                forward: bool = False) -> torch.Tensor:
-    """``kernel_rows`` of the full-angle table on ``device`` (for kernel D), or
-    with ``forward`` its ``forward_rows`` (for kernel C), built once per
-    geometry."""
+def static_rows(theta: Tuple[float, ...], n: int, n_det: int, device: torch.device) -> torch.Tensor:
+    """``kernel_rows`` of the full-angle table on ``device`` (for kernels C
+    and D), built once per geometry."""
     rows = kernel_rows(angle_table_fused(np.asarray(theta), n, n, n_det))
-    return torch.as_tensor(forward_rows(rows) if forward else rows, device=device)
+    return torch.as_tensor(rows, device=device)
 
 
 def _static_forward(image: torch.Tensor, theta: Tuple[float, ...], n_det: int) -> torch.Tensor:
@@ -259,7 +244,7 @@ def _static_forward(image: torch.Tensor, theta: Tuple[float, ...], n_det: int) -
         return radon_fused_plain(image, static_table(theta, n, n_det, dev), n_det)
     from ._cuda import joseph_fwd_static
 
-    out = joseph_fwd_static(image, static_rows(theta, n, n_det, dev, True), len(theta), n_det)
+    out = joseph_fwd_static(image, static_rows(theta, n, n_det, dev), n_det)
     LAUNCHES["joseph_fwd_static"] += 1
     return out
 

@@ -9,7 +9,8 @@ the step (train.py:233-402, ``training=False``) over all angles.
 ``vi/train.py`` ``Trainer`` extends it with the train step, Adam and the loop.
 
 The projector is routed as the JAX Trainer routes it (train.py:249-256):
-the fused Joseph kernels (A forward, B backward) when ``use_pallas`` is set,
+the fused Joseph kernels (A forward, B backward, on the kernel rows of the
+full angle table, ``self.rows``) when ``use_pallas`` is set,
 the detector has at least 64 pixels and the device is CUDA (the TPU's
 counterpart) or the caller asks for the kernel route (``kernel_route``, the
 counterpart of the JAX Trainer's mesh, which the parity tests give it);
@@ -29,7 +30,7 @@ from ..config import Config
 from ..data.masks import create_all_masks
 from ..data.recon_init import classical_recon_stack
 from ..models.pvae import build_models, params_from_flax
-from ..ops.joseph_radon import angle_table_fused, radon_fused
+from ..ops.joseph_radon import angle_table_fused, kernel_rows, radon_fused
 from ..ops.radon import pad_phantom, radon
 from ..utils.flax_msgpack import load_checkpoint
 from .loss import Draws, ElboAux, elbo_loss
@@ -128,9 +129,11 @@ class Server:
         # n_det detector as the reference's pad-to-n_det (train.py:272-283).
         self.skip_pad = not cfg.no_pad and self.x_size == self.y_size
         if self.joseph:
+            # the (A, 8) kernel rows of the full angle table, built once; a
+            # train step selects its angles' rows on the device
             img_hw = self.x_size if self.skip_pad else self.n_det
-            self.table = torch.as_tensor(
-                angle_table_fused(self.theta, img_hw, img_hw, self.n_det), device=device
+            self.rows = torch.as_tensor(
+                kernel_rows(angle_table_fused(self.theta, img_hw, img_hw, self.n_det)), device=device
             )
 
     def restore(self, run_path: str, ckpt_num: Optional[int] = None) -> str:
@@ -164,8 +167,8 @@ class Server:
             return radon(recon, theta, pad=not self.cfg.no_pad, n_det=self.n_det)
         if not self.skip_pad and not self.cfg.no_pad:
             recon = pad_phantom(recon, self.n_det)
-        table = self.table if angles_i is None else self.table.index_select(0, angles_i)
-        return radon_fused(recon.contiguous(), table, self.n_det)
+        rows = self.rows if angles_i is None else self.rows.index_select(0, angles_i)
+        return radon_fused(recon.contiguous(), rows, self.n_det)
 
     def draw_shapes(self, batch: int) -> Tuple[List[Tuple[int, ...]], Tuple[int, ...]]:
         """NHWC shapes of the latent draws per level and of the output draw."""

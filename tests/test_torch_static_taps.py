@@ -1,4 +1,5 @@
-"""Kernel D's tap search (``csrc/joseph_adj_static.cu``), mirrored in numpy.
+"""Kernel D's tap search (``csrc/joseph_adj_static.cu``, which also runs
+kernel B), mirrored in numpy.
 
 For a pixel (r, y) and a kernel row, D computes u = (y - offset - slope_r * r)
 * (1/slope_t) and k = floor(u + 0.5), and tests with the forward's own hat
@@ -9,11 +10,12 @@ below the smallest k over its 8 x 32 pixel tile's corners, rounded down to
 a multiple of 4.  These tests hold
 that window against every tap of the forward (kernel C's ``joseph_pos`` /
 ``joseph_hat``, the plain version's arithmetic) and the band against every
-window, on the paper geometry and on edge tables, with pos and u computed
-both with fused multiply-adds (emulated in float64, then rounded to float32)
-and without; they run the whole window search on a small batch against the
-plain adjoint, and check kernel C's grouped rows.  The CUDA kernels
-themselves run only on the card (``tests/test_torch_cuda.py``).
+window, on the paper (init) geometry, on the recon geometry that kernels A
+and B serve (128^2 onto 184 bins: all 180 angles and a 20-angle subset)
+and on edge tables, with pos and u computed both with fused multiply-adds
+(emulated in float64, then rounded to float32) and without; they run the
+whole window search on a small batch against the plain adjoint.  The CUDA
+kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 
 import os
@@ -98,14 +100,23 @@ def _missed_taps(rows, n, n_det, pos_mul_add, u_mul_add, chunk=20):
     return seen, missed
 
 
+# 20 of the 180 angles, drawn as a train step draws them, all past the first 20
+RECON_SUBSET = np.sort(np.random.default_rng(20).choice(np.arange(20, 180), 20, replace=False))
+GEOMETRIES = ["paper", "recon", "recon subset", "edge 32x48", "edge 48x32"]
+
+
 def _geometry(name):
     if name == "paper":
         return _paper_theta(), 184, 184
+    if name == "recon":  # the serve and train steps: the 128^2 recon onto 184 bins
+        return _paper_theta(), 128, 184
+    if name == "recon subset":
+        return _paper_theta()[RECON_SUBSET], 128, 184
     theta = np.asarray(EDGE_ANGLES + (np.pi / 4 + 1e-7, np.pi / 4 - 1e-7, 1e-7), np.float32)
     return (theta, 32, 48) if name == "edge 32x48" else (theta, 48, 32)
 
 
-@pytest.mark.parametrize("geometry", ["paper", "edge 32x48", "edge 48x32"])
+@pytest.mark.parametrize("geometry", GEOMETRIES)
 def test_kernel_rows_hold_the_table_its_reciprocal_and_the_slope_premise(geometry):
     theta, n, n_det = _geometry(geometry)
     table = jr.angle_table_fused(theta, n, n, n_det)
@@ -113,15 +124,14 @@ def test_kernel_rows_hold_the_table_its_reciprocal_and_the_slope_premise(geometr
     assert rows.shape == (len(theta), 8) and rows.dtype == np.float32
     np.testing.assert_array_equal(rows[:, :5], table)
     np.testing.assert_array_equal(rows[:, 5], (1.0 / table[:, 0].astype(np.float64)).astype(np.float32))
-    np.testing.assert_array_equal(rows[:, 6], np.arange(len(theta)))
-    np.testing.assert_array_equal(rows[:, 7], 0)
+    np.testing.assert_array_equal(rows[:, 6:], 0)
     # the window's premise: every row has |slope_t| >= 1, so a pixel meets at most two bins
     assert np.all(np.abs(table[:, 0]) >= 1)
     rows_t = jr.static_rows(tuple(float(x) for x in theta), n, n_det, torch.device("cpu"))
     np.testing.assert_array_equal(rows_t.numpy(), rows)
 
 
-@pytest.mark.parametrize("geometry", ["paper", "edge 32x48", "edge 48x32"])
+@pytest.mark.parametrize("geometry", GEOMETRIES)
 def test_adjoint_window_holds_every_forward_tap(geometry):
     """For every (pixel, angle), D's bins (the pair around u, and the guard
     bin when u is within NEAR of an integer) hold every bin whose hat is
@@ -149,7 +159,7 @@ def _band_lo(row, i, j, mul_add):
     return (np.min(ks, axis=0) - 2) // 4 * 4
 
 
-@pytest.mark.parametrize("geometry", ["paper", "edge 32x48", "edge 48x32"])
+@pytest.mark.parametrize("geometry", GEOMETRIES)
 def test_adjoint_band_holds_every_window(geometry):
     """For every (pixel, angle), D's bins, all within k - 1 .. k + 1, lie in
     the band its tile staged."""
@@ -165,26 +175,9 @@ def test_adjoint_band_holds_every_window(geometry):
         assert (k - 1 >= lo).all() and (k + 1 < lo + BAND).all()
 
 
-def test_forward_rows_group_each_angle_once_by_major_axis():
-    theta = _paper_theta()
-    rows = jr.kernel_rows(jr.angle_table_fused(theta, 184, 184, 184))
-    grouped = jr.forward_rows(rows)
-    per = jr.FWD_STATIC_ROWS_PER_BLOCK
-    assert len(grouped) % per == 0 and len(grouped) < len(rows) + 2 * per
-    blocks = grouped.reshape(-1, per, 8)
-    assert (blocks[:, :, 4] == blocks[:, :1, 4]).all()  # one major axis per block
-    real = grouped[grouped[:, 6] >= 0]
-    np.testing.assert_array_equal(np.sort(real[:, 6]), np.arange(len(rows)))
-    np.testing.assert_array_equal(real, rows[real[:, 6].astype(int)])
-    # an empty row's taps all fall off the image
-    empty = grouped[grouped[:, 6] < 0]
-    pos = _pos(empty[:, None, :], np.float32(183), np.float32(183), _fma)
-    assert len(empty) and (pos < -1).all() and (empty[:, 3] == 0).all()
-
-
 def _adjoint_by_window(sino, rows, n):
     """Kernel D's algorithm in numpy: per angle, each pixel's bins (the pair
-    and the guard), the forward's hat (fused pos, as ``joseph_pos``), hat *
+    and the guard), the forward's hat (pos as ``joseph_pos`` rounds it), hat *
     weight applied to the whole batch."""
     b, a, n_det = sino.shape
     i, j = np.meshgrid(np.arange(n, dtype=np.float32), np.arange(n, dtype=np.float32), indexing="ij")
@@ -194,7 +187,7 @@ def _adjoint_by_window(sino, rows, n):
         rf, yf = (j, i) if row[4] > 0.5 else (i, j)
         t0, guard = _window(row, rf, yf, _fma)
         for t in (t0, t0 + 1, np.maximum(guard, -1)):
-            hat = _hat(yf, _pos(row, t.astype(np.float32), rf, _fma))
+            hat = _hat(yf, _pos(row, t.astype(np.float32), rf, _mul_add))
             ok = (t >= 0) & (t < n_det) & (hat > 0)
             w = np.where(ok, hat * row[3], np.float32(0))
             out += w[None] * sino[:, q, np.clip(t, 0, n_det - 1)]
@@ -210,7 +203,7 @@ def test_window_search_matches_the_plain_adjoint(n, n_det):
     x = rng.uniform(0, 1, (3, n, n)).astype(np.float32)
     out = _adjoint_by_window(sino, jr.kernel_rows(table), n)
     ref = jr.radon_fused_adjoint_plain(torch.from_numpy(sino), torch.from_numpy(table), n).numpy()
-    # the same taps, another summation order (and fused pos against the plain version's unfused)
+    # the same taps (pos rounded as the plain version rounds it), another summation order
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
     ax = jr.radon_fused_plain(torch.from_numpy(x), torch.from_numpy(table), n_det).numpy()
     np.testing.assert_allclose(np.sum(ax.astype(np.float64) * sino),
@@ -225,6 +218,6 @@ def test_static_kernel_wrappers_take_cuda_tensors_only():
     theta = tuple(float(t) for t in EDGE_ANGLES)
     cpu = torch.device("cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
-        _cuda.joseph_fwd_static(torch.zeros((2, 8, 8)), jr.static_rows(theta, 8, 12, cpu, True), 4, 12)
+        _cuda.joseph_fwd_static(torch.zeros((2, 8, 8)), jr.static_rows(theta, 8, 12, cpu), 12)
     with pytest.raises(ValueError, match="CUDA tensor"):
         _cuda.joseph_adj_static(torch.zeros((2, 4, 12)), jr.static_rows(theta, 8, 12, cpu), 8)
