@@ -49,7 +49,13 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
   8. kernel E - the probe ``python -m ct_pvae_tpu_torch.scripts.probe_conv_fused``
                at its default shape (its lines and verdict; its launches of E
                are E's count), then E against its plain version at the
-               probe's shape and a ragged one, E, plain and cuDNN times, bound
+               probe's shape and at odd ones (C 11: no 16-byte rows, F 70:
+               two pair groups, padded; batch 1 at 5 x 5; a view one float
+               into its storage; C 80: ten channel chunks); E timed with the
+               host held out in turns with its first design
+               (csrc/conv_fused.cu), the plain version, the cuDNN
+               formulation in float32 and, as a yardstick only, in TF32;
+               its float32 bound beside its 3xTF32 ceiling
 
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; a line before them holds the per-kernel JSON.
@@ -72,6 +78,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12   # tensor cores; kernel E does three TF32 products per multiply-add
 
 N_SERVE = 100
 PASSES = 8
@@ -82,6 +89,7 @@ INIT_BATCH = 32          # classical_recon_stack's batch
 PSNR_FLOOR_DB = 15.0
 KERNEL_RTOL = 1e-5       # relative, plus KERNEL_ATOL_FRAC * max|plain|:
 KERNEL_ATOL_FRAC = 1e-5  # the kernel and plain version differ in summation order only
+                         # (E also in its 3xTF32 split, about 2^-21 of each product)
 ADJOINT_RTOL = 1e-6      # <Ax, g> against <x, A^T g>, float64 sums of float32 terms: the
                          # forward and adjoint kernels' taps are bitwise the same
 MANY_ANGLES = 1200       # above the 1024 that B and D once took
@@ -170,14 +178,16 @@ def compare(label, what: str, got, want) -> float:
     return max_abs
 
 
-def bound(bytes_moved: int, ops: int):
+def bound(bytes_moved: int, ops: int, flops_per_s: float = FP32_FLOPS_PER_S):
     """(bound ms, "bytes" or "operations", its log text): the larger of the
-    bytes over the memory rate and the float32 operations over their peak."""
+    bytes over the memory rate and the operations over their peak (float32
+    outside the tensor cores unless ``flops_per_s`` says otherwise)."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    ops_ms = ops / flops_per_s * 1e3
     by = "bytes" if bytes_ms >= ops_ms else "operations"
     text = (f"bound {max(bytes_ms, ops_ms):.5f} ms by {by} (bytes {bytes_moved} B -> "
-            f"{bytes_ms:.5f} ms at 3.35 TB/s; {ops} flops -> {ops_ms:.5f} ms at 67 TFLOP/s)")
+            f"{bytes_ms:.5f} ms at 3.35 TB/s; {ops} flops -> {ops_ms:.5f} ms at "
+            f"{flops_per_s / 1e12:g} TFLOP/s)")
     return max(bytes_ms, ops_ms), by, text
 
 
@@ -238,36 +248,76 @@ def check_kernel(label, kernel, plain, x, table, n, n_det, adjoint=False, old=No
 
 
 def check_conv_fused(label, x, kern, bias, timed: bool):
-    """Kernel E against its plain version on ``x``; with ``timed``, also the
-    kernel's, the plain version's and the cuDNN formulation's times and E's
-    bound; returns the kernel's record."""
+    """Kernel E against its plain version on ``x``, and its first design
+    (``csrc/conv_fused.cu``) too.  With ``timed``: E timed with the host held
+    out in turns with its first design (kernel, old, three times; each the
+    median of its three medians), the plain version, the cuDNN formulation
+    in float32 and, as a yardstick only, with ``cudnn.allow_tf32`` (restored
+    after), and E's bounds: float32 on CUDA cores, and the 3xTF32 ceiling
+    (three TF32 products a multiply-add, what E does) as ``bound_ms``.
+    Returns the kernel's record."""
     import torch
 
-    from ct_pvae_tpu_torch.ops import conv_fused
+    from ct_pvae_tpu_torch.ops import _cuda, conv_fused
     from ct_pvae_tpu_torch.scripts.probe_conv_fused import f_cudnn
 
     kernel = lambda: conv_fused.conv3x3_periodic_maxout(x, kern, bias)
+    old = lambda: _cuda.conv_fused_maxout(x, kern, bias)
     plain = lambda: conv_fused.conv3x3_periodic_maxout_plain(x, kern, bias)
     library = lambda: f_cudnn(x, kern, bias)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    max_abs = compare(label, f"{tuple(x.shape)} x {tuple(kern.shape)}", got, want)
+    what = f"{tuple(x.shape)} x {tuple(kern.shape)}, x at {x.data_ptr() % 16} bytes past 16"
+    max_abs = compare(label, what, got, want)
+    compare(f"{label} (first design)", what, old(), want)
     if not timed:
         return None
-    lib_err = float((library() - want).abs().max())
-    ms, host_us, _ = cuda_time(kernel, 10, per_sample=20)
+    turns = [cuda_time(fn, 10, per_sample=20) for fn in (kernel, old) * 3]
+    mid = lambda v: sorted(v)[len(v) // 2]
+    ms, host_us = mid([t[0] for t in turns[::2]]), mid([t[1] for t in turns[::2]])
+    old_ms, old_us = mid([t[0] for t in turns[1::2]]), mid([t[1] for t in turns[1::2]])
+    covered = all(t[2] for t in turns[::2])
+    old_covered = all(t[2] for t in turns[1::2])
     plain_ms = cuda_ms(plain, 3)
+    lib_err = float((library() - want).abs().max())
     library_ms = cuda_ms(library, 10, per_sample=5)
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_err = float((library() - want).abs().max())
+        tf32_ms = cuda_ms(library, 10, per_sample=5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
     b, h, w, c = x.shape
     f = kern.shape[-1] // 2
     bytes_moved = (x.numel() + kern.numel() + bias.numel() + got.numel()) * 4
     ops = 2 * b * h * w * 9 * c * 2 * f  # a multiply-add per tap, channel and output channel
-    bound_ms, bound_by, text = bound(bytes_moved, ops)
-    log(f"  {label}: kernel {ms:.4f} ms device, {host_us:.1f} us host per call (medians of 10 x 20 "
-        f"queued launches behind a spin, {ops / ms / 1e9:.2f} TFLOP/s), plain (im2col + matmul) "
-        f"{plain_ms:.4f} ms, cuDNN formulation {library_ms:.4f} ms (max abs err {lib_err:.2e}); {text}")
+    f32_ms, _, f32_text = bound(bytes_moved, ops)
+    bound_ms, bound_by, tf32_text = bound(bytes_moved, 3 * ops, TF32_FLOPS_PER_S)
+    note = lambda ok: "" if ok else " (host in the window)"
+    log(f"  {label}: kernel {ms:.4f} ms device{note(covered)}, {host_us:.1f} us host per call "
+        f"(medians of 10 x 20 queued launches behind a spin), {ops / ms / 1e9:.2f} TFLOP/s; "
+        f"first design {old_ms:.4f} ms{note(old_covered)}, {old_us:.1f} us host: "
+        f"{old_ms / ms:.2f}x; in turns, kernel {' / '.join(f'{t[0]:.4f}' for t in turns[::2])} "
+        f"ms, first design {' / '.join(f'{t[0]:.4f}' for t in turns[1::2])} ms")
+    log(f"  {label}: plain (im2col + matmul) {plain_ms:.4f} ms; cuDNN formulation float32 "
+        f"{library_ms:.4f} ms (max abs err {lib_err:.2e}, {library_ms / ms:.2f}x E); cuDNN with "
+        f"TF32 (yardstick only) {tf32_ms:.4f} ms (max abs err {tf32_err:.2e})")
+    log(f"  {label}: float32 {f32_text}: E at {f32_ms / ms:.1%} of it; 3xTF32 ceiling: "
+        f"{tf32_text}: E at {bound_ms / ms:.1%} of it")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, host_us=host_us)
+                bound_by=bound_by, library_ms=library_ms, host_us=host_us, covered=covered,
+                old_design_ms=old_ms, old_design_covered=old_covered, f32_bound_ms=f32_ms,
+                cudnn_tf32_ms=tf32_ms, cudnn_tf32_max_abs_err=tf32_err)
+
+
+def at_offset(x, offset: int):
+    """A contiguous copy of ``x`` whose storage starts ``offset`` floats into
+    its allocation (not on 16 bytes for offset 1)."""
+    import torch
+
+    flat = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    return flat[offset:].view_as(x).copy_(x)
 
 
 def check_adjoint(label, fwd, adj, x, g, rtol=ADJOINT_RTOL) -> None:
@@ -463,7 +513,8 @@ def main() -> int:
 
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("joseph_fwd", "joseph_adj", "joseph_fwd_static", "joseph_adj_static", "conv_fused")
+    sources = ("joseph_fwd", "joseph_adj", "joseph_fwd_static", "joseph_adj_static", "conv_fused",
+               "conv_fused_mma")
     _cuda.load_libraries(*sources)
     log(f"[build] {', '.join(f'{n}.cu' for n in sources)} built in parallel and loaded in "
         f"{time.perf_counter() - t0:.2f} s into {_cuda.BUILD_DIR}")
@@ -812,8 +863,16 @@ def main() -> int:
         raise AssertionError(f"the probe returned {rc} with {probe_launches} launches of E")
     x, kern, bias = probe_conv_fused.probe_inputs(10, 128, 40, 40, 3, dev)
     records["conv_fused_maxout"] = check_conv_fused("E probe shape", x, kern, bias, timed=True)
-    x, kern, bias = probe_conv_fused.probe_inputs(3, 37, 11, 70, 3, dev)
-    check_conv_fused("E ragged", x[:, :, :35].contiguous(), kern, bias, timed=False)
+    odd_e = {  # (B, H, W, C, F, offset in floats)
+        "E ragged, C 11, F 70": (3, 37, 35, 11, 70, 0),
+        "E batch 1, 5 x 5, C 11, F 70": (1, 5, 5, 11, 70, 0),
+        "E batch 1, 5 x 5": (1, 5, 5, 40, 40, 0),
+        "E view off 16 bytes": (2, 16, 16, 40, 40, 1),
+        "E C 80": (2, 20, 19, 80, 12, 0),
+    }
+    for name, (ob, oh, ow, oc, of, offset) in odd_e.items():
+        x, kern, bias = probe_conv_fused.probe_inputs(ob, max(oh, ow), oc, of, 3, dev)
+        check_conv_fused(name, at_offset(x[:, :oh, :ow], offset), kern, bias, timed=False)
     log("[probe] ok")
 
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -822,7 +881,7 @@ def main() -> int:
         "joseph_adj": ("csrc/joseph_adj_static.cu", "ct_pvae_tpu/ops/pallas_radon.py:487"),
         "joseph_fwd_static": ("csrc/joseph_fwd_static.cu", "ct_pvae_tpu/ops/pallas_radon.py:124"),
         "joseph_adj_static": ("csrc/joseph_adj_static.cu", "ct_pvae_tpu/ops/pallas_radon.py:152"),
-        "conv_fused_maxout": ("csrc/conv_fused.cu", "scripts/probe_conv_fused.py:97"),
+        "conv_fused_maxout": ("csrc/conv_fused_mma.cu", "scripts/probe_conv_fused.py:97"),
     }
     # A-D: their launches on the train path (phase 5); E: on the probe (phase 8)
     launches = {**train_launches, "conv_fused_maxout": probe_launches}

@@ -65,12 +65,17 @@ _CONV_ARGS = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
+# kernel E's: a workspace after out (x, kern, bias, out, work, batch, h, w, c_in, f_out, stream)
+_CONV_WORK_ARGS = _CONV_ARGS[:4] + [ctypes.c_void_p] + _CONV_ARGS[4:]
 _SIGNATURES = {
     "joseph_fwd": [("joseph_fwd", _JOSEPH_ARGS, ctypes.c_int)],
     "joseph_adj": [("joseph_adj", _JOSEPH_ARGS, ctypes.c_int)],
     "joseph_fwd_static": [("joseph_fwd_static", _JOSEPH_ARGS, ctypes.c_int)],
     "joseph_adj_static": [("joseph_adj_static", _JOSEPH_ARGS, ctypes.c_int)],
     "conv_fused": [("conv_fused_maxout", _CONV_ARGS, ctypes.c_int)],
+    "conv_fused_mma": [("conv_fused_mma", _CONV_WORK_ARGS, ctypes.c_int),
+                       ("conv_fused_mma_work_floats", [ctypes.c_int, ctypes.c_int],
+                        ctypes.c_longlong)],
 }
 
 
@@ -222,20 +227,47 @@ def joseph_adj_static(sino: torch.Tensor, rows: torch.Tensor, n: int) -> torch.T
 
 # output channel pairs per block (kMaxPairs in conv_fused.cu)
 CONV_MAX_PAIRS = 64
+# channel pairs per block of kernel E (kPairs in conv_fused_mma.cu)
+CONV_MMA_PAIRS = 40
 
 
-def conv_fused_maxout(x: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Launch kernel E on CUDA tensors: (B, H, W, C) x (3, 3, C, 2F) x (2F,) -> (B, H, W, F)."""
+def _conv_shapes(x: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor):
+    """(B, H, W, C, F) of kernel E's CUDA inputs; raises on anything else."""
     _check_cuda_f32(x=x, kern=kern, bias=bias)
     b, h, w, c = x.shape
     f = kern.shape[-1] // 2
     if kern.shape != (3, 3, c, 2 * f) or f < 1 or bias.shape != (2 * f,):
         raise ValueError(f"bad shapes x {tuple(x.shape)} kern {tuple(kern.shape)} "
                          f"bias {tuple(bias.shape)}")
+    return b, h, w, c, f
+
+
+def conv_fused_maxout(x: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Launch the first design of kernel E (``csrc/conv_fused.cu``, CUDA
+    cores; a yardstick: no path calls it) on CUDA tensors:
+    (B, H, W, C) x (3, 3, C, 2F) x (2F,) -> (B, H, W, F)."""
+    b, h, w, c, f = _conv_shapes(x, kern, bias)
     z = b * -(-f // min(f, CONV_MAX_PAIRS))
     if not (b > 0 and h > 0 and w > 0 and c > 0 and z <= 65535 and -(-h // 8) <= 65535):
         raise ValueError(f"grid out of range: x {tuple(x.shape)}, F {f}")
     out = torch.empty((b, h, w, f), dtype=torch.float32, device=x.device)
     _call("conv_fused", x.device, x.data_ptr(), kern.data_ptr(), bias.data_ptr(), out.data_ptr(),
           b, h, w, c, f)
+    return out
+
+
+def conv_fused_mma(x: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Launch kernel E (``csrc/conv_fused_mma.cu``, tensor cores, 3xTF32: a
+    weight split and the conv) on CUDA tensors:
+    (B, H, W, C) x (3, 3, C, 2F) x (2F,) -> (B, H, W, F)."""
+    b, h, w, c, f = _conv_shapes(x, kern, bias)
+    # the workspace: the weights split into (big, small) TF32 pairs, as the blocks read them
+    work_floats = load_libraries("conv_fused_mma")["conv_fused_mma"].conv_fused_mma_work_floats(c, f)
+    items = b * -(-h // 16) * -(-w // 16)  # 16 x 16 output tiles
+    _check_grid(b > 0 and h > 0 and w > 0 and c > 0 and items < 2 ** 31 and work_floats < 2 ** 32
+                and -(-f // CONV_MMA_PAIRS) <= 65535, batch=b, h=h, w=w, c=c, f=f)
+    out = torch.empty((b, h, w, f), dtype=torch.float32, device=x.device)
+    work = torch.empty(work_floats, dtype=torch.float32, device=x.device)
+    _call("conv_fused_mma", x.device, x.data_ptr(), kern.data_ptr(), bias.data_ptr(),
+          out.data_ptr(), work.data_ptr(), b, h, w, c, f)
     return out

@@ -12,10 +12,13 @@ what ``f_lax``, ``f_im2col`` and ``f_pallas`` compute in
 ``_periodic_pad`` :40, ``_shrink_pad(H, 1, 3) == (1, 1)`` :45).  The layout
 is the probe's NHWC, so the tests compare like with like.
 
-  * kernel E, ``csrc/conv_fused.cu``: the TPU kernel ``kernel``
-    (probe_conv_fused.py:97) written for Hopper.  Forward only, like the TPU
+  * kernel E, ``csrc/conv_fused_mma.cu``: the TPU kernel ``kernel``
+    (probe_conv_fused.py:97) written for Hopper's tensor cores, an implicit
+    GEMM held to float32 by a 3xTF32 split.  Forward only, like the TPU
     kernel: an input that requires grad raises rather than returning a
-    result cut off from autograd.
+    result cut off from autograd.  Its first design, ``csrc/conv_fused.cu``
+    (CUDA cores), stays bound as ``_cuda.conv_fused_maxout``, a yardstick
+    that no path calls.
   * ``conv3x3_periodic_maxout_plain``: the same im2col math in plain torch
     (nine shifted slices of the wrapped input, one matmul, bias, maxout).
 
@@ -76,9 +79,9 @@ def conv3x3_periodic_maxout(x: torch.Tensor, kern: torch.Tensor, bias: torch.Ten
     _check_args(x, kern, bias)
     if x.device.type == "cpu":
         return conv3x3_periodic_maxout_plain(x, kern, bias)
-    from ._cuda import conv_fused_maxout
+    from ._cuda import conv_fused_mma
 
-    out = conv_fused_maxout(x, kern, bias)  # checks its inputs; raises off CUDA
+    out = conv_fused_mma(x, kern, bias)  # checks its inputs; raises off CUDA
     LAUNCHES["conv_fused_maxout"] += 1
     return out
 

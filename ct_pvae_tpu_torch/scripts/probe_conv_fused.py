@@ -10,14 +10,18 @@ formulations on the card, at the JAX probe's shapes, inputs and verdict:
   im2col  nine shifted slices concatenated to (B*H*W, 9C), one
           ``torch.matmul`` with (9C, 2F), bias and maxout: kernel E's plain
           version (``ops/conv_fused.py``)
-  cuda    kernel E (``csrc/conv_fused.cu``), the counterpart of the JAX
-          probe's ``pallas``
+  cuda    kernel E (``csrc/conv_fused_mma.cu``, tensor cores held to
+          float32 by a 3xTF32 split), the counterpart of the JAX probe's
+          ``pallas``
 
 For each it prints the max relative error against ``cudnn`` (under 1e-4, as
-in the JAX probe), the forward time by CUDA events over queued launches with
-its TFLOP/s, and the fwd+bwd time of the two library formulations; then the
-GO/NO-GO line at 1.3x against ``cudnn``.  Kernel E's row tile is fixed in
-its source (8 rows), so the JAX probe's ``--rows`` has no counterpart.
+in the JAX probe), the forward time with its TFLOP/s, and the fwd+bwd time
+of the two library formulations; then the GO/NO-GO line at 1.3x against
+``cudnn``.  Times are device time with the host held out: ``--iters`` calls
+queued behind a spin kernel that outlasts their enqueue, the median of 5
+such samples (``scripts/step_cost.py`` ``cuda_time``).  Kernel E's tile is
+fixed in its source (16 x 16 pixels), so the JAX probe's ``--rows`` has no
+counterpart.
 
 Usage: python -m ct_pvae_tpu_torch.scripts.probe_conv_fused [--b 10] [--hw 128]
          [--cin 40] [--f 40] [--k 3] [--iters 50]
@@ -37,6 +41,7 @@ import torch.nn.functional as F
 
 from ..device import exact_f32
 from ..ops.conv_fused import conv3x3_periodic_maxout, conv3x3_periodic_maxout_plain
+from .step_cost import cuda_time
 
 GO_THRESHOLD = 1.3
 MAX_REL_ERR = 1e-4
@@ -68,22 +73,13 @@ def probe_inputs(b: int, hw: int, cin: int, f: int, k: int,
     return tuple(torch.from_numpy(a).to(device) for a in (x, kern, bias))
 
 
-def queued_ms(fn: Callable[[], object], iters: int, repeats: int = 5) -> float:
+def device_ms(fn: Callable[[], object], iters: int, repeats: int = 5) -> Tuple[float, str]:
     """Median over ``repeats`` samples of the device time per call of ``fn()``,
-    each sample ``iters`` calls queued back to back between two CUDA events,
-    after one warm-up call."""
-    fn()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return sorted(times)[len(times) // 2]
+    each sample ``iters`` calls queued behind a spin kernel, with the host
+    held out (``step_cost.cuda_time``); and a note for the printed line when
+    the host's enqueue outlasted the spin (its time then holds host time)."""
+    ms, _, covered = cuda_time(fn, repeats, per_sample=iters)
+    return ms, "" if covered else "  (host in the window)"
 
 
 def run(b: int = 10, hw: int = 128, cin: int = 40, f: int = 40, k: int = 3,
@@ -105,16 +101,16 @@ def run(b: int = 10, hw: int = 128, cin: int = 40, f: int = 40, k: int = 3,
         flops = 2 * b * hw * hw * k * k * cin * 2 * f
         ms = {}
         for name, fn in FORMULATIONS.items():
-            ms[name] = queued_ms(lambda: fn(x, kern, bias), iters)
-            print(f"{name:8s} {ms[name]:7.3f} ms  ({flops / ms[name] / 1e9:6.2f} TFLOP/s)",
+            ms[name], note = device_ms(lambda: fn(x, kern, bias), iters)
+            print(f"{name:8s} {ms[name]:7.4f} ms  ({flops / ms[name] / 1e9:6.2f} TFLOP/s){note}",
                   flush=True)
 
     # fwd+bwd of the two library formulations (the train step is mostly backward)
     xg, kg = x.clone().requires_grad_(), kern.clone().requires_grad_()
     for name in ("cudnn", "im2col"):
         fn = FORMULATIONS[name]
-        t = queued_ms(lambda: torch.autograd.grad(fn(xg, kg, bias).sum(), (xg, kg)), iters)
-        print(f"{name:8s} fwd+bwd {t:7.3f} ms", flush=True)
+        t, note = device_ms(lambda: torch.autograd.grad(fn(xg, kg, bias).sum(), (xg, kg)), iters)
+        print(f"{name:8s} fwd+bwd {t:7.3f} ms{note}", flush=True)
 
     best = min(ms, key=ms.get)
     speedup = ms["cudnn"] / ms[best]

@@ -322,6 +322,38 @@ def test_conv_fused_kernel_matches_plain(cuda, b, hw, c, f):
         conv_fused.conv3x3_periodic_maxout(x.requires_grad_(), kern, bias)
 
 
+@pytest.mark.parametrize("b, h, w, c, f, offset", [
+    (3, 37, 35, 11, 70, 0),   # C 11: no 16-byte rows; F 70: two pair groups, the second padded
+    (1, 5, 5, 11, 70, 0),     # batch 1, one tile hanging past every edge
+    (1, 5, 5, 40, 40, 0),
+    (2, 16, 16, 40, 40, 1),   # a view one float into its storage: 4-byte copies
+    (2, 20, 19, 80, 12, 0),   # C 80: ten channel chunks, ten stages an item
+])
+def test_conv_fused_kernel_at_odd_shapes_and_offsets(cuda, b, h, w, c, f, offset):
+    """Kernel E (and its first design, the yardstick) against the plain
+    version where its copies, tiles or stages take another path."""
+    x, kern, bias = probe_inputs(b, max(h, w), c, f, 3, cuda)
+    x = _at_offset(x[:, :h, :w], offset)
+    assert (x.data_ptr() % 16 != 0) == (offset == 1)
+    ref = conv_fused.conv3x3_periodic_maxout_plain(x, kern, bias)
+    tol = dict(rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    before = conv_fused.LAUNCHES["conv_fused_maxout"]
+    torch.testing.assert_close(conv_fused.conv3x3_periodic_maxout(x, kern, bias), ref, **tol)
+    assert conv_fused.LAUNCHES["conv_fused_maxout"] == before + 1
+    torch.testing.assert_close(_cuda.conv_fused_maxout(x, kern, bias), ref, **tol)
+    assert conv_fused.LAUNCHES["conv_fused_maxout"] == before + 1  # the yardstick is not counted
+
+
+def test_conv_fused_kernel_rejects_what_it_does_not_take(cuda):
+    x, kern, bias = probe_inputs(1, 8, 4, 3, 3, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        _cuda.conv_fused_mma(x.transpose(1, 2), kern, bias)
+    with pytest.raises(ValueError, match="bad shapes"):
+        _cuda.conv_fused_mma(x, kern[:, :, :3].contiguous(), bias)
+    with pytest.raises(TypeError, match="float32"):
+        _cuda.conv_fused_mma(x.double(), kern, bias)
+
+
 def test_gather_route_on_a_cuda_tensor(cuda):
     """Below 64 detector pixels, or with use_pallas off, the card takes the
     gather projector: the same numbers as the CPU's, and the same gradient."""
