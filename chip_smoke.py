@@ -56,6 +56,22 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
                (csrc/conv_fused.cu), the plain version, the cuDNN
                formulation in float32 and, as a yardstick only, in TF32;
                its float32 bound beside its 3xTF32 ceiling
+  9. stretch - the stretch recipe (configs/foam_stretch.yaml: 512^2 foams,
+               a 728-bin detector, 360 angles) at full width, depth cut:
+               ``cli make-data`` of 16 of its 64 foams (host foams and
+               device sinograms timed apart; kernel C once, no gather
+               call; the sinograms against C's plain version) and of the
+               toy objects on C (against their analytic sums); ``cli train
+               --config configs/foam_stretch.yaml`` for 100 of its 500
+               steps (set-up split into masks and the init stack through
+               D; A, B and D launches, no gather call; finite losses,
+               steps/s, the final evaluation's PSNR, recorded only), one
+               stretch step against the CPU path and a profile of it; A,
+               B, C and D at the stretch shapes against their plain
+               versions, timed with the host held out beside cuSPARSE,
+               with their adjoint identities; the ramp FBP of the 16
+               sinograms through D against the gather route (PSNR >= 15
+               dB on D's) and gridrec_fourier on the card against the CPU
 
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; a line before them holds the per-kernel JSON.
@@ -98,6 +114,13 @@ CPU_STEP_LOSS_RTOL = 1e-5  # GPU vs CPU train step: the loss
 CPU_GRAD_RTOL = 2e-2       # and each gradient's error norm over its norm: cuDNN runs
                            # some backward convs as float32 FFTs (fft2d_r2c + complex
                            # gemm in the profile), 4.6e-3 at most on an H100
+# the stretch recipe (configs/foam_stretch.yaml): its widths, with depth cut
+STRETCH_PIXELS, STRETCH_DETECTOR, STRETCH_ANGLES = 512, 728, 360
+STRETCH_FOAMS = 16       # of the recipe's 64: the host rasterises the foams
+STRETCH_STEPS = 100      # of the recipe's 500
+TOY_IMAGES = 64
+TOY_ATOL = 1e-6          # toy sinograms on kernel C against the analytic sums
+GRIDREC_RTOL = 1e-5      # the tolerance tests/test_torch_recon.py holds gridrec to (of the max)
 
 
 def log(msg: str) -> None:
@@ -128,28 +151,30 @@ def cuda_ms(fn, repeats: int, per_sample: int = 1) -> float:
 
 def joseph_taps(table, n: int, n_det: int):
     """(row, column, value) of the projector as a sparse (A*n_det, n*n) matrix:
-    the in-range hat taps of every ray, the weight folded in."""
+    the in-range hat taps of every ray, the weight folded in; built 24
+    angles at a time, which bounds the (24, T, N) temporaries."""
     import torch
 
     dev = table.device
-    a = table.shape[0]
     t = torch.arange(n_det, dtype=torch.float32, device=dev)[None, :, None]
     r = torch.arange(n, dtype=torch.float32, device=dev)[None, None, :]
-    col = lambda i: table[:, i][:, None, None]
-    pos = (col(2) + col(0) * t) + col(1) * r                    # (A, T, N)
-    y0 = torch.floor(pos)
-    is_y = col(4) > 0.5
-    ray = (torch.arange(a, device=dev)[:, None, None] * n_det
-           + torch.arange(n_det, device=dev)[None, :, None]).expand_as(pos)
     rows, cols, vals = [], [], []
-    for yk in (y0, y0 + 1.0):
-        keep = (yk >= 0) & (yk <= n - 1)
-        hat = torch.clamp(1.0 - torch.abs(yk - pos), min=0.0) * col(3)
-        yi, ri = yk.long(), r.long().expand_as(pos)
-        pix = torch.where(is_y, yi * n + ri, ri * n + yi)
-        rows.append(ray[keep])
-        cols.append(pix[keep])
-        vals.append(hat[keep])
+    for a0 in range(0, table.shape[0], 24):
+        tab = table[a0:a0 + 24]
+        col = lambda i: tab[:, i][:, None, None]
+        pos = (col(2) + col(0) * t) + col(1) * r                # (chunk, T, N)
+        y0 = torch.floor(pos)
+        is_y = col(4) > 0.5
+        ray = ((a0 + torch.arange(tab.shape[0], device=dev))[:, None, None] * n_det
+               + torch.arange(n_det, device=dev)[None, :, None]).expand_as(pos)
+        for yk in (y0, y0 + 1.0):
+            keep = (yk >= 0) & (yk <= n - 1)
+            hat = torch.clamp(1.0 - torch.abs(yk - pos), min=0.0) * col(3)
+            yi, ri = yk.long(), r.long().expand_as(pos)
+            pix = torch.where(is_y, yi * n + ri, ri * n + yi)
+            rows.append(ray[keep])
+            cols.append(pix[keep])
+            vals.append(hat[keep])
     return torch.cat(rows), torch.cat(cols), torch.cat(vals)
 
 
@@ -481,6 +506,238 @@ def profile_train_step(tr, bidx, aidx, steps: int = 5, label: str = "train step"
     return dict(step_ms=plain_wall * 1e3, busy=device_us / wall_us)
 
 
+def reset_counts() -> None:
+    """Set every kernel's launch count and the gather projector's call count to 0."""
+    from ct_pvae_tpu_torch.ops import joseph_radon, radon
+
+    for k in joseph_radon.LAUNCHES:
+        joseph_radon.LAUNCHES[k] = 0
+    radon.CALLS["radon"] = 0
+
+
+class Timed:
+    """Within the block, module attribute ``module.name`` is wrapped so that
+    its calls add their wall seconds (the device synchronised) to ``seconds[key]``."""
+
+    def __init__(self, seconds: dict, *targets):
+        self.seconds, self.targets, self.saved = seconds, targets, []
+
+    def __enter__(self):
+        import torch
+
+        for module, name, key in self.targets:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+            self.seconds.setdefault(key, 0.0)
+
+            def timed(*args, _fn=fn, _key=key, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds[_key] += time.perf_counter() - t0
+                return out
+
+            setattr(module, name, timed)
+        return self.seconds
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def phase_stretch(dev, smi: str, records: dict) -> dict:
+    """Phase 9: ``make-data`` for the stretch recipe's 512^2 foams on kernel C
+    and the toy objects, ``cli train --config configs/foam_stretch.yaml`` at
+    full width (A, B, D), one stretch step against the CPU path, A-D at the
+    stretch shapes, the FBP through D against the gather route, and
+    ``gridrec_fourier`` on the card against the CPU.  Adds a ``stretch``
+    record to each of A-D's; returns the path's launches by kernel."""
+    import numpy as np
+    import torch
+
+    from ct_pvae_tpu_torch import cli
+    from ct_pvae_tpu_torch.config import Config
+    from ct_pvae_tpu_torch.data import io as data_io
+    from ct_pvae_tpu_torch.data import sinogram
+    from ct_pvae_tpu_torch.data.recon_init import crop_center
+    from ct_pvae_tpu_torch.eval.metrics import mean_psnr
+    from ct_pvae_tpu_torch.ops import joseph_radon as jr
+    from ct_pvae_tpu_torch.ops import radon
+    from ct_pvae_tpu_torch.ops.fbp import fbp, filter_sinogram
+    from ct_pvae_tpu_torch.ops.gridrec import gridrec
+    from ct_pvae_tpu_torch.vi import serve
+
+    yaml = os.path.join(REPO, "configs", "foam_stretch.yaml")
+    scfg = Config.load(yaml)
+    n, n_det, n_ang = STRETCH_PIXELS, STRETCH_DETECTOR, STRETCH_ANGLES
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stretch_") as tmp:
+        # -- 9.1 make-data: foams on the host, sinograms on kernel C ----------
+        ds = os.path.join(tmp, "dataset_foam_512")
+        reset_counts()
+        t0 = time.perf_counter()
+        with Timed({}, (sinogram, "generate_foam_images", "host foams"),
+                   (sinogram, "images_to_sinograms", "device sinograms")) as secs:
+            rc = cli.main(["make-data", "--img-type", "foam", "-n", str(STRETCH_FOAMS),
+                           "--num-angles", str(n_ang), "--n-pixel", str(n), "--save-path", ds])
+        wall = time.perf_counter() - t0
+        make_launches, gather = dict(jr.LAUNCHES), radon.CALLS["radon"]
+        expected = {"joseph_fwd": 0, "joseph_adj": 0, "joseph_fwd_static": -(-STRETCH_FOAMS // 64),
+                    "joseph_adj_static": 0}
+        log(f"[stretch] make-data foam -n {STRETCH_FOAMS} --num-angles {n_ang} --n-pixel {n} in "
+            f"{wall:.2f} s: host foams {secs['host foams']:.2f} s, device sinograms "
+            f"{secs['device sinograms']:.3f} s; launches {make_launches} (expected {expected}: C once "
+            f"per chunk of 64), gather projector calls {gather}")
+        if rc != 0 or make_launches != expected or gather:
+            raise AssertionError(f"make-data returned {rc}; launches {make_launches}, gather {gather}")
+        sinos, theta, p = data_io.load_dataset(ds)
+        truth = data_io.load_ground_truth(ds)
+        if sinos.shape != (STRETCH_FOAMS, n_ang, n_det) or p != n_det or truth.shape != (STRETCH_FOAMS, n, n) \
+                or not np.isfinite(sinos).all() or sinos.min() < 0:
+            raise AssertionError(f"make-data wrote sinograms {sinos.shape} and truth {truth.shape}")
+        theta_f = tuple(float(t) for t in theta)
+        table = jr.static_table(theta_f, n_det, n_det, dev)
+        padded = radon.pad_phantom(torch.as_tensor(truth, device=dev), n_det)
+        want = jr.radon_fused_plain(padded, table, n_det).clamp_min(0.0)
+        compare("C make-data chunk", f"the dataset's {STRETCH_FOAMS} sinograms against the plain version",
+                torch.as_tensor(sinos, device=dev), want)
+        del padded, want
+
+        toy_ds = os.path.join(tmp, "dataset_toy_card")
+        reset_counts()
+        rc = cli.main(["make-data", "--img-type", "toy", "-n", str(TOY_IMAGES), "--save-path", toy_ds])
+        toy_c, gather = jr.LAUNCHES["joseph_fwd_static"], radon.CALLS["radon"]
+        tsinos, _, _ = data_io.load_dataset(toy_ds)
+        timgs = data_io.load_ground_truth(toy_ds)
+        err = max(float(np.abs(tsinos[:, 0] - timgs.sum(axis=1)).max()),
+                  float(np.abs(tsinos[:, 1] - timgs.sum(axis=2)[:, ::-1]).max()))
+        log(f"[stretch] make-data toy -n {TOY_IMAGES} on the card: {tsinos.shape} sinograms, C launches "
+            f"{toy_c}, gather calls {gather}; against the analytic column and flipped row sums max abs "
+            f"err {err:.2e} (tolerance {TOY_ATOL:g})")
+        if rc != 0 or toy_c != 1 or gather or tsinos.shape != (TOY_IMAGES, 2, 2) or not err <= TOY_ATOL:
+            raise AssertionError("toy make-data on the card is not kernel C's analytic sums")
+
+        # -- 9.2 train the stretch recipe at full width ------------------------
+        run = os.path.join(tmp, "stretch_run")
+        reset_counts()
+        t0 = time.perf_counter()
+        with Timed({}, (serve, "create_all_masks", "masks"),
+                   (serve, "classical_recon_stack", "init stack")) as setup:
+            rc = cli.main(["train", "--config", yaml, "--input_path", ds, "--save_path", run,
+                           "-i", str(STRETCH_STEPS)])
+        wall = time.perf_counter() - t0
+        train_launches, gather = dict(jr.LAUNCHES), radon.CALLS["radon"]
+        eval_batches = STRETCH_FOAMS // scfg.batch_size
+        init_batch = max(1, min(INIT_BATCH, int(INIT_BATCH * (184.0 / n_det) ** 2)))
+        init_launches = 2 * -(-STRETCH_FOAMS // init_batch)  # the gridrec and the mask channels
+        expected = {"joseph_fwd": STRETCH_STEPS + eval_batches, "joseph_adj": STRETCH_STEPS,
+                    "joseph_fwd_static": 0, "joseph_adj_static": init_launches}
+        log(f"[stretch] train launches {train_launches} (expected {expected}: A and B once per step, "
+            f"A once per final-evaluation batch, D twice per init batch of {init_batch}), gather "
+            f"projector calls {gather}")
+        if rc != 0 or train_launches != expected or gather:
+            raise AssertionError(f"stretch train returned {rc}; launches {train_launches}, gather {gather}")
+        losses = np.load(os.path.join(run, "train_loss_vec.npy"))
+        loss_final = np.load(os.path.join(run, "loss_final.npy"))
+        recon = np.load(os.path.join(run, "reconstruction_mean.npy"))
+        if losses.shape != (STRETCH_STEPS,) or not np.isfinite(losses).all() \
+                or not np.isfinite(loss_final).all() or recon.shape != (STRETCH_FOAMS, n, n, 1) \
+                or not np.isfinite(recon).all():
+            raise AssertionError(f"stretch train: losses {losses.shape} or recon {recon.shape} not finite")
+        setup_min = float(np.load(os.path.join(run, "setup_time.npy")))
+        train_min = float(np.load(os.path.join(run, "training_time.npy")))
+        psnr_stretch = mean_psnr(truth, recon[..., 0])
+        log(f"[stretch] {STRETCH_STEPS} steps of configs/foam_stretch.yaml on {STRETCH_FOAMS} foams in "
+            f"{wall:.2f} s (cli wall): set-up {setup_min * 60:.3f} s (masks {setup['masks']:.3f} s, init "
+            f"stack through D {setup['init stack']:.3f} s, first step), then {STRETCH_STEPS - 1} steps in "
+            f"{train_min * 60:.3f} s = {(STRETCH_STEPS - 1) / (train_min * 60):.2f} steps/s on {smi}")
+        log(f"[stretch] loss first {losses[0]:.6g}, last {losses[-1]:.6g}; final evaluation loss "
+            f"{loss_final.mean():.6g}; posterior-mean PSNR {psnr_stretch:.3f} dB after {STRETCH_STEPS} "
+            f"steps from scratch (recorded, not gated)")
+        trainer, bidx, aidx = check_train_step(scfg, sinos[: scfg.batch_size], theta, run, dev,
+                                               label="stretch")
+        profile_train_step(trainer, bidx, aidx, steps=3, label="stretch train step")
+        del trainer
+
+        # -- 9.3 A-D at the stretch shapes --------------------------------------
+        gen = torch.Generator(device=dev).manual_seed(9)
+        sb = scfg.num_samples * scfg.batch_size
+        full = torch.as_tensor(jr.angle_table_fused(theta, n, n, n_det), device=dev)
+        full_rows = torch.as_tensor(jr.kernel_rows(full.cpu().numpy()), device=dev)
+        sel = torch.randperm(n_ang, generator=gen, device=dev)[: scfg.angles_per_iter]
+        rows_sub, sub = full_rows.index_select(0, sel), full.index_select(0, sel)
+        x8 = torch.rand((sb, n, n), generator=gen, device=dev)
+        g8 = torch.randn((sb, scfg.angles_per_iter, n_det), generator=gen, device=dev)
+        stretch = {
+            "joseph_fwd": check_kernel(
+                "A stretch train", lambda x: jr.radon_fused(x, rows_sub, n_det),
+                lambda x: jr.radon_fused_plain(x, sub, n_det), x8, sub, n, n_det),
+            "joseph_adj": check_kernel(
+                "B stretch train", lambda g: jr.radon_fused_adjoint(g, rows_sub, n),
+                lambda g: jr.radon_fused_adjoint_plain(g, sub, n), g8, sub, n, n_det, adjoint=True),
+        }
+        stretch["joseph_fwd"]["at_360_angles"] = check_kernel(
+            "A stretch final evaluation", lambda x: jr.radon_fused(x, full_rows, n_det),
+            lambda x: jr.radon_fused_plain(x, full, n_det), x8, full, n, n_det)
+        check_adjoint("A/B stretch", lambda x: jr.radon_fused(x, rows_sub, n_det),
+                      lambda g: jr.radon_fused_adjoint(g, rows_sub, n), x8, g8)
+        del x8, g8
+        torch.cuda.empty_cache()
+        c_new = lambda x: jr.radon_static(x, theta_f, n_det)
+        d_new = lambda g: jr.backproject_static(g, theta_f, n_det, n_det)
+        c_plain = lambda x: jr.radon_fused_plain(x, table, n_det)
+        d_plain = lambda g: jr.radon_fused_adjoint_plain(g, table, n_det)
+        x64 = torch.rand((64, n_det, n_det), generator=gen, device=dev)
+        stretch["joseph_fwd_static"] = check_kernel("C stretch make-data", c_new, c_plain, x64, table,
+                                                    n_det, n_det)
+        for rb in (36, 16):  # the ragged last chunks of 100 foams and of this phase's 16
+            xr = x64[:rb].contiguous()
+            compare(f"C stretch ragged {rb}", f"{tuple(xr.shape)} x {n_ang} angles", c_new(xr), c_plain(xr))
+        g2 = torch.rand((init_batch, n_ang, n_det), generator=gen, device=dev)
+        stretch["joseph_adj_static"] = check_kernel("D stretch init", d_new, d_plain, g2, table, n_det,
+                                                    n_det, adjoint=True)
+        check_adjoint("C/D stretch", c_new, d_new, x64[:init_batch].contiguous(), g2)
+        del x64, g2
+        torch.cuda.empty_cache()
+
+        # -- 9.4 FBP through D against the gather route; gridrec -----------------
+        s_all = torch.as_tensor(sinos, device=dev)
+        theta_t = torch.as_tensor(theta, device=dev)
+        reset_counts()
+        rec_d = fbp(s_all, theta, n_det, n_det)  # host angles: D's route reads them without a sync
+        torch.cuda.synchronize()
+        fbp_d = jr.LAUNCHES["joseph_adj_static"]
+        gather_fbp = lambda: radon.backproject(filter_sinogram(s_all), theta_t, n_det, n_det) * (
+            np.pi / (2.0 * n_ang))
+        rec_g = gather_fbp()
+        d_ms = cuda_ms(lambda: fbp(s_all, theta, n_det, n_det), 3)
+        g_ms = cuda_ms(gather_fbp, 3)
+        rel = float((rec_d - rec_g).abs().max() / rec_g.abs().max())
+        psnr_d = mean_psnr(truth, crop_center(rec_d.cpu().numpy(), n, n))
+        psnr_g = mean_psnr(truth, crop_center(rec_g.cpu().numpy(), n, n))
+        log(f"[stretch] ramp FBP of the {STRETCH_FOAMS} full sinograms: through D ({fbp_d} launch, "
+            f"{d_ms:.3f} ms) against the gather route on the card ({g_ms:.3f} ms): max abs diff / max "
+            f"{rel:.3e}; PSNR against the ground truth, D {psnr_d:.3f} dB, gather {psnr_g:.3f} dB "
+            f"(floor {PSNR_FLOOR_DB} dB on D's)")
+        if fbp_d != 1 or radon.CALLS["radon"] or not psnr_d >= PSNR_FLOOR_DB:
+            raise AssertionError(f"FBP through D: {fbp_d} launches, PSNR {psnr_d:.2f} dB")
+        del rec_d, rec_g
+        gr_gpu = gridrec(s_all[:4], theta_t, n_det, n_det)
+        gr_cpu = gridrec(s_all[:4].cpu(), theta_t.cpu(), n_det, n_det)
+        gr_rel = float((gr_gpu.cpu() - gr_cpu).abs().max() / gr_cpu.abs().max())
+        gr_ms = cuda_ms(lambda: gridrec(s_all[:4], theta_t, n_det, n_det), 3)
+        psnr_gr = mean_psnr(truth[:4], crop_center(gr_gpu.cpu().numpy(), n, n))
+        log(f"[stretch] gridrec_fourier (scatter: its tables would pass 512 MB) of 4 sinograms on the "
+            f"card ({gr_ms:.3f} ms) against the CPU: max abs diff / max {gr_rel:.3e} (tolerance "
+            f"{GRIDREC_RTOL:g}); PSNR {psnr_gr:.3f} dB")
+        if not gr_rel <= GRIDREC_RTOL:
+            raise AssertionError("gridrec on the card disagrees with the CPU path")
+    launches = {k: make_launches[k] + train_launches[k] for k in make_launches}
+    for name, rec in stretch.items():
+        records[name]["stretch"] = dict(rec, launches=launches[name])
+    log("[stretch] ok")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -684,8 +941,7 @@ def main() -> int:
         shutil.copy(os.path.join(REPO, "dataset_foam", "dataset_parameters.npy"), data)
         out_dir = os.path.join(tmp, "out")
 
-        for k in joseph_radon.LAUNCHES:
-            joseph_radon.LAUNCHES[k] = 0
+        reset_counts()
         t0 = time.perf_counter()
         rc = cli.main(["infer", "--run_path", run, "--input_path", data, "--output", out_dir,
                        "--cheap_init", "--passes", str(PASSES)])
@@ -734,8 +990,7 @@ def main() -> int:
                    os.path.join(train_run, "training_checkpoints", "ckpt-100000.msgpack"))
         if N_TRAIN != N_SERVE:
             raise AssertionError("the train phase reuses the serving phase's 100 sinograms")
-        for k in joseph_radon.LAUNCHES:
-            joseph_radon.LAUNCHES[k] = 0
+        reset_counts()
         t0 = time.perf_counter()
         # r4's own flags (config.json: restore, ulc, resume_total, reuse_cache,
         # train), with num_iter 100 past its 100000 steps
@@ -787,9 +1042,7 @@ def main() -> int:
         toy_run = os.path.join(tmp, "toy_run")
         toy_cfg = Config.load(toy_yaml)
         toy_sinos, toy_theta, _ = load_dataset(toy_data)
-        for k in joseph_radon.LAUNCHES:
-            joseph_radon.LAUNCHES[k] = 0
-        radon.CALLS["radon"] = 0
+        reset_counts()
         t0 = time.perf_counter()
         rc = cli.main(["train", "--config", toy_yaml, "--input_path", toy_data,
                        "--save_path", toy_run, "-i", str(TOY_STEPS)])
@@ -820,8 +1073,7 @@ def main() -> int:
         profile_train_step(toy_trainer, bidx, aidx, label="toy train step")
 
         # -- 7. serve on the real init stack --------------------------------
-        for k in joseph_radon.LAUNCHES:
-            joseph_radon.LAUNCHES[k] = 0
+        reset_counts()
         real_dir = os.path.join(tmp, "out_real")
         t0 = time.perf_counter()
         rc = cli.main(["infer", "--run_path", run, "--input_path", data, "--output", real_dir,
@@ -874,6 +1126,9 @@ def main() -> int:
         x, kern, bias = probe_conv_fused.probe_inputs(ob, max(oh, ow), oc, of, 3, dev)
         check_conv_fused(name, at_offset(x[:, :oh, :ow], offset), kern, bias, timed=False)
     log("[probe] ok")
+
+    # -- 9. the stretch recipe: make-data, train, A-D, FBP and gridrec -----
+    phase_stretch(dev, smi, records)
 
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     meta = {  # A and B run on C's and D's kernels

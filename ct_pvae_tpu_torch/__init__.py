@@ -10,7 +10,9 @@ launch (``ops/_cuda.py``).
 Slice 1 covers amortized serving (``python -m ct_pvae_tpu_torch.cli infer``),
 slice 2 training (``python -m ct_pvae_tpu_torch.cli train``), slice 3 the
 gather-projector route with the toy recipe (``--config configs/toy.yaml``)
-and the fused conv probe (``python -m ct_pvae_tpu_torch.scripts.probe_conv_fused``).
+and the fused conv probe (``python -m ct_pvae_tpu_torch.scripts.probe_conv_fused``),
+slice 7 data generation (``python -m ct_pvae_tpu_torch.cli make-data``) and
+the 512^2 stretch recipe (``--config configs/foam_stretch.yaml``).
 """
 
 __version__ = "0.1.0"

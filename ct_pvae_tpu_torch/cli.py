@@ -1,12 +1,13 @@
 """Command line of the port (counterpart of ``ct_pvae_tpu/cli.py``).
 
+  python -m ct_pvae_tpu_torch.cli make-data --img-type foam -n 100 --save-path DS
   python -m ct_pvae_tpu_torch.cli train --input_path DS --save_path RUN --train ...
   python -m ct_pvae_tpu_torch.cli infer --run_path RUN --output OUT --cheap_init
 
-``train`` (cli.py:27-212) and ``infer`` (cli.py:252-298) take the JAX
-package's flags and dests, plus ``--device``; they run on the GPU unless
-``--device cpu`` is given.  ``--config`` takes a run's ``config.json`` or a
-YAML recipe such as ``configs/toy.yaml``.
+``make-data`` (cli.py:144-180), ``train`` (cli.py:27-212) and ``infer``
+(cli.py:252-298) take the JAX package's flags and dests, plus ``--device``;
+they run on the GPU unless ``--device cpu`` is given.  ``--config`` takes a
+run's ``config.json`` or a YAML recipe such as ``configs/toy.yaml``.
 """
 
 from __future__ import annotations
@@ -102,6 +103,40 @@ def _add_train_args(p: argparse.ArgumentParser, suppress: bool = False) -> None:
     a("--device", dest="device", default="cuda", help="torch device (default: cuda)")
 
 
+def cmd_make_data(argv) -> int:
+    """Make a foam or toy dataset (sinograms, parameters, ground truth)."""
+    p = argparse.ArgumentParser(prog="make-data")
+    p.add_argument("--img-type", choices=["foam", "toy"], default="foam")
+    p.add_argument("-n", "--num-train", type=int, default=100)
+    p.add_argument("--num-angles", type=int, default=180)
+    p.add_argument("--n-pixel", type=int, default=128)
+    p.add_argument("--save-path", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--h5-dir", default=None,
+                   help="real .h5 scans: not ported yet (ROADMAP Queue 1 item 5, data/real.py)")
+    p.add_argument("--slices", default=argparse.SUPPRESS,
+                   help="z slices per .h5 scan (default 'middle'): not ported yet, as --h5-dir")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    args = p.parse_args(argv)
+    if args.h5_dir is not None or "slices" in vars(args):
+        raise NotImplementedError(
+            "--h5-dir / --slices (real-data ingest, data/real.py) are not ported yet "
+            "(ROADMAP Queue 1 item 5)")
+    from .data.sinogram import make_dataset
+
+    save = args.save_path or (
+        "dataset_foam" if args.img_type == "foam" else "dataset_toy_discrete2"
+    )
+    images, sinos, theta = make_dataset(
+        args.img_type, args.num_train, save_path=save,
+        num_angles=args.num_angles, n_pixel=args.n_pixel, seed=args.seed, device=args.device,
+    )
+    print(f"Shape of sinograms: {sinos.shape}")
+    print(f"Shape of original training images: {images.shape}")
+    print(f"Saved under {save}/")
+    return 0
+
+
 def _parse_train_cfg(argv, prog: str):
     """(Config, device): typed flags over the ``--config`` file over defaults
     (cli.py:126-149, 183-190)."""
@@ -183,7 +218,7 @@ def cmd_infer(argv) -> int:
     return 0
 
 
-COMMANDS = {"train": cmd_train, "infer": cmd_infer}
+COMMANDS = {"make-data": cmd_make_data, "train": cmd_train, "infer": cmd_infer}
 
 
 def main(argv: Optional[list] = None) -> int:

@@ -1,1 +1,1 @@
-"""Data loading and the measurement model (port of ``ct_pvae_tpu.data``)."""
+"""Data generation, loading and the measurement model (port of ``ct_pvae_tpu.data``)."""

@@ -5,15 +5,17 @@ reconstructed at detector resolution and centre-cropped; one more channel is
 the unfiltered backprojection of the mask itself (reference
 helper_functions.py:477-529):
 
-  gridrec -> FBP with the ramp filter
-  fbp     -> FBP with the shepp-logan filter
-  sirt    -> 30 SIRT iterations  } on the static Joseph pair at detector
-  tv      -> 60 Chambolle-Pock   } resolution (kernels C and D), as the JAX
-                                   package's TPU route does (recon_init.py:144-153)
+  gridrec         -> FBP with the ramp filter
+  gridrec_fourier -> Fourier regridding (``ops/gridrec.py``)
+  fbp             -> FBP with the shepp-logan filter
+  sirt            -> 30 SIRT iterations  } on the static Joseph pair at detector
+  tv              -> 60 Chambolle-Pock   } resolution (kernels C and D), as the JAX
+                                           package's TPU route does (recon_init.py:144-153)
 
+The FBP channels (and the mask channel) take ``fbp``'s route: kernel D on
+the card from a 512-pixel detector on, the gather backprojector otherwise.
 With ``cheap_init`` (serving), sirt and tv become the ramp-FBP, keeping the
-channel count and order (recon_init.py:99-100).  ``gridrec_fourier`` is not
-ported.
+channel count and order (recon_init.py:99-100).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.fbp import fbp
+from ..ops.gridrec import gridrec
 from ..ops.joseph_radon import backproject_static, radon_static
 from ..ops.sirt import sirt_with_ops
 from ..ops.tv import tv_with_ops
@@ -46,7 +49,7 @@ def crop_center(img: np.ndarray, final_x: int, final_y: int):
 
 def _check_algorithms(algorithms: List[str]) -> None:
     for alg in algorithms:
-        if alg not in _FILTER and alg not in ("sirt", "tv"):
+        if alg not in _FILTER and alg not in ("gridrec_fourier", "sirt", "tv"):
             raise NotImplementedError(f"init algorithm {alg!r} is not ported")
 
 
@@ -54,6 +57,8 @@ def _recon(alg: str, sino: torch.Tensor, theta_t: torch.Tensor, theta: tuple,
            size: int) -> torch.Tensor:
     if alg in _FILTER:
         return fbp(sino, theta_t, size, size, _FILTER[alg])
+    if alg == "gridrec_fourier":
+        return gridrec(sino, theta_t, size, size, "ramp")
 
     def fwd(img):
         return radon_static(img, theta, size)

@@ -1,1 +1,1 @@
-"""Projectors, FBP and the fused conv kernel (port of ``ct_pvae_tpu.ops`` and kernel E)."""
+"""Projectors, FBP, gridrec and the fused conv kernel (port of ``ct_pvae_tpu.ops`` and kernel E)."""

@@ -1,10 +1,17 @@
 """Filtered back-projection (port of ``ct_pvae_tpu/ops/fbp.py``).
 
-rFFT filter multiply on the detector axis, then the pixel-driven
-backprojector of ``radon.py``, with the classical uniform pi/(2A) angle
-weight (``fbp.py:53-168``).  This is what the serving init stack runs: the
-'gridrec' (ramp) and 'fbp' (shepp-logan) channels and the unfiltered mask
-channel.
+rFFT filter multiply on the detector axis, then a backprojection, with the
+classical uniform pi/(2A) angle weight or the Voronoi angle weights
+(``fbp.py:25-168``).  This is what the init stack runs: the 'gridrec'
+(ramp) and 'fbp' (shepp-logan) channels and the unfiltered mask channel.
+
+The backprojection is routed as the JAX package routes it
+(``_backproject_any``, fbp.py:25-47): a square reconstruction from a
+detector of 512 pixels or more goes to the static Joseph adjoint
+(``backproject_static``, kernel D) on the card, where the JAX package takes
+its Pallas adjoint on a TPU; everything else, and every CPU tensor, goes to
+the pixel-driven gather ``backproject`` of ``radon.py``, as the JAX package
+does off the TPU.
 """
 
 from __future__ import annotations
@@ -14,13 +21,23 @@ import math
 import numpy as np
 import torch
 
+from .joseph_radon import backproject_static
 from .radon import backproject
 
 FILTERS = ("ramp", "ramlak", "shepp", "shepp-logan", "cosine", "hamming", "hann", "none")
+KERNEL_DETECTOR = 512  # detectors from this size on take kernel D on the card
 
-# The JAX package sends detectors of 512 pixels and more to its Pallas
-# adjoint kernel (fbp.py:36-47, kernel D); the port has no such kernel yet.
-_STRETCH_DETECTOR = 512
+
+def _backproject_any(filtered: torch.Tensor, theta, x_size: int, y_size: int) -> torch.Tensor:
+    """Kernel D for a square output from a detector of ``KERNEL_DETECTOR``
+    pixels or more on a CUDA tensor; the gather ``backproject`` otherwise."""
+    p = filtered.shape[-1]
+    if p >= KERNEL_DETECTOR and x_size == y_size and filtered.device.type == "cuda":
+        theta_t = tuple(float(t) for t in np.asarray(torch.as_tensor(theta).cpu(), np.float32))
+        flat = filtered.reshape((-1,) + filtered.shape[-2:]).float()
+        out = backproject_static(flat, theta_t, x_size, y_size)
+        return out.reshape(filtered.shape[:-2] + (x_size, y_size))
+    return backproject(filtered, theta, x_size, y_size)
 
 
 def fourier_filter(size: int, filter_name: str = "ramp") -> np.ndarray:
@@ -66,22 +83,40 @@ def filter_sinogram(sinogram: torch.Tensor, filter_name: str = "ramp") -> torch.
     return torch.fft.irfft(spec * omega_r, n=p, dim=-1).to(sinogram.dtype)
 
 
+def voronoi_angle_weights(theta: torch.Tensor) -> torch.Tensor:
+    """Per-angle Voronoi cell lengths on the half-circle [0, pi), wrapping
+    at the pi seam (fbp.py:101-131): pi/A each on a uniform grid.  Angles in
+    radians with a span below pi; negative gaps are clamped to 0."""
+    order = torch.argsort(theta, dim=-1, stable=True)
+    ts = torch.take_along_dim(theta, order, dim=-1)
+    gaps = torch.diff(ts, dim=-1)
+    wrap = (ts[..., :1] + math.pi) - ts[..., -1:]     # gap across the pi seam
+    g = torch.clamp(torch.cat([gaps, wrap], dim=-1), min=0.0)  # g[i] = ts[i+1] - ts[i]
+    w_sorted = 0.5 * (g + torch.roll(g, 1, dims=-1))  # Voronoi cell of ts[i]
+    inv = torch.argsort(order, dim=-1, stable=True)
+    return torch.take_along_dim(w_sorted, inv, dim=-1).to(theta.dtype)
+
+
 def fbp(
     sinogram: torch.Tensor,
     theta: torch.Tensor,
     x_size: int,
     y_size: int,
     filter_name: str = "ramp",
+    angle_weights: str = "uniform",
 ) -> torch.Tensor:
-    """Filtered back-projection, (..., A, P) -> (..., x_size, y_size), with
-    uniform angle weights (reference fbp_tensorflow.py:74)."""
-    a, p = sinogram.shape[-2], sinogram.shape[-1]
-    if p >= _STRETCH_DETECTOR and x_size == y_size:
-        raise NotImplementedError(
-            f"FBP at a {p}-pixel detector takes the JAX package's Pallas adjoint "
-            "route (kernel D, ops/pallas_radon.py _adj_kernel), not yet ported "
-            "(ROADMAP Queue 2)"
-        )
+    """Filtered back-projection, (..., A, P) -> (..., x_size, y_size).
+
+    ``angle_weights``: 'uniform', the classical pi/(2A) (reference
+    fbp_tensorflow.py:74), or 'voronoi' (``voronoi_angle_weights``, halved),
+    which equals it on a uniform angle grid (fbp.py:134-168).
+    """
+    a = sinogram.shape[-2]
     filtered = filter_sinogram(sinogram, filter_name)
-    recon = backproject(filtered, theta, x_size, y_size)
+    if angle_weights == "voronoi":
+        w = voronoi_angle_weights(torch.as_tensor(theta, dtype=torch.float32, device=sinogram.device))
+        return _backproject_any(filtered * w[..., :, None], theta, x_size, y_size) * 0.5
+    if angle_weights != "uniform":
+        raise ValueError(f"unknown angle_weights {angle_weights!r}")
+    recon = _backproject_any(filtered, theta, x_size, y_size)
     return recon * (math.pi / (2.0 * a))

@@ -8,8 +8,14 @@ Geometry convention shared with ``fbp.py`` and the Joseph projector:
 
 Counterparts: ``num_proj_pixels`` and ``pad_phantom`` (radon.py:44-68), the
 gather projector ``radon`` with ``_sample_grid`` and ``_bilinear_taps``
-(radon.py:71-159) and the chunked pixel-driven ``backproject``
-(radon.py:232-304).
+(radon.py:71-159), ``radon_low_mem`` (radon.py:162-196), ``radon_fast``
+(radon.py:199-229), the chunked pixel-driven ``backproject``
+(radon.py:232-304) and ``rotate_image`` (radon.py:307-348).
+
+``radon_fast`` takes concrete angles and routes as the JAX package does:
+the static Joseph projector (``radon_static``, kernel C) on a CUDA tensor,
+where the JAX package takes its Pallas kernel on a TPU, and the gather
+``radon`` on any other tensor, as the JAX package does off the TPU.
 
 ``radon`` is XLA code in the JAX package, not a Pallas kernel, so plain torch
 is its port: four bilinear gathers over a static (A, S, P) sample grid.
@@ -23,6 +29,7 @@ from __future__ import annotations
 import math
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -110,6 +117,46 @@ def radon(image: torch.Tensor, theta: torch.Tensor, *, pad: bool = False,
     return sino.sum(dim=2).reshape(batch_shape + (a, n_det))
 
 
+def radon_low_mem(image: torch.Tensor, theta: torch.Tensor, *, pad: bool = False,
+                  n_det: Optional[int] = None, angle_chunk: int = 8) -> torch.Tensor:
+    """``radon`` over chunks of ``angle_chunk`` angles, which bounds the live
+    (B, chunk, S, P) gather (radon.py:162-196); the angle count must be a
+    multiple of ``angle_chunk``."""
+    if pad:
+        image = pad_phantom(image, n_det)
+    h, w = image.shape[-2], image.shape[-1]
+    if n_det is None:
+        if h != w:
+            raise ValueError("unpadded radon requires square images; use pad=True")
+        n_det = h
+    theta = torch.as_tensor(theta, device=image.device)
+    a = theta.shape[0]
+    if a % angle_chunk != 0:
+        raise ValueError(f"angle count {a} not divisible by angle_chunk {angle_chunk}")
+    chunks = [radon(image, theta[a0:a0 + angle_chunk], n_det=n_det) for a0 in range(0, a, angle_chunk)]
+    return torch.cat(chunks, dim=-2)
+
+
+def radon_fast(image: torch.Tensor, theta, *, pad: bool = False,
+               n_det: Optional[int] = None) -> torch.Tensor:
+    """Radon transform at concrete angles ``theta`` (radon.py:199-229):
+    kernel C (``radon_static``) on a CUDA tensor, the gather ``radon`` on
+    any other.  (..., H, W) -> (..., A, n_det)."""
+    theta_np = np.asarray(torch.as_tensor(theta).cpu(), np.float32)
+    if image.device.type != "cuda":
+        return radon(image, torch.as_tensor(theta_np), pad=pad, n_det=n_det)
+    from .joseph_radon import radon_static
+
+    if pad:
+        image = pad_phantom(image, n_det)
+    h, w = image.shape[-2], image.shape[-1]
+    if n_det is None:
+        n_det = h
+    flat = image.reshape((-1, h, w)).float().contiguous()  # radon_static takes square images only
+    out = radon_static(flat, tuple(float(t) for t in theta_np), n_det)
+    return out.reshape(image.shape[:-2] + (len(theta_np), n_det))
+
+
 def backproject(
     sinogram: torch.Tensor,
     theta: torch.Tensor,
@@ -155,3 +202,30 @@ def backproject(
         v = v0 * (1 - wt) + v1 * wt                            # (B, c, X*Y)
         out = out + v.sum(dim=1).reshape(b, x_size, y_size)
     return out.reshape(batch_shape + (x_size, y_size))
+
+
+def rotate_image(images: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Bilinear centre rotation, one angle (radians) per image, zero fill
+    outside the support: (B, H, W) or (B, H, W, C) (radon.py:307-348).
+    Positive angles turn the object the way the projector's angle axis
+    advances, so radon(rotate_image(x, theta_k)) is the sinogram rolled by k
+    rows (``vi/augment.py``)."""
+    squeeze = images.dim() == 3
+    if squeeze:
+        images = images[..., None]
+    b, h, w, c = images.shape
+    dev = images.device
+    cx, cy = (h - 1) / 2.0, (w - 1) / 2.0
+    xg, yg = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    angles = torch.as_tensor(angles, device=dev).float()[:, None, None]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    # sample the source at coordinates rotated by -angle (pull-back)
+    xs = cos * (xg - cx) + sin * (yg - cy) + cx
+    ys = -sin * (xg - cx) + cos * (yg - cy) + cy
+    flat = images.reshape(b, h * w, c)
+    out = 0
+    for fi, wg in _bilinear_taps(xs, ys, h, w):
+        vals = torch.gather(flat, 1, fi.reshape(b, h * w, 1).expand(-1, -1, c))
+        out = out + vals.reshape(b, h, w, c) * wg[..., None]
+    return out[..., 0] if squeeze else out

@@ -28,8 +28,12 @@ Random draws come from ``sampler(kind, index, ...)``: by default a
 so a resumed run replays the draws of an uninterrupted one, as
 ``fold_in(key, step)`` does in the JAX package; tests pass the JAX draws.
 
-Not ported (each raises): ``train_pnm``, ``roll_augment``, meshes,
-multi-host and streamed batches, profiling.  ``steps_per_call`` (the
+With ``roll_augment`` the train step rolls its batch (``vi/augment.py``)
+by indices drawn from a generator seeded from (seed, step), as the JAX step
+splits a roll key from its step key.
+
+Not ported (each raises): ``train_pnm``, meshes, multi-host and streamed
+batches, profiling.  ``steps_per_call`` (the
 ``lax.scan`` fusion of several steps) is ignored: it does not change the
 numerics, and a CUDA graph is its GPU counterpart.
 """
@@ -50,6 +54,7 @@ from ..models.pvae import branch_halves, init_params, params_to_flax, params_fro
 from ..utils.batching import IndexStream
 from ..utils.flax_msgpack import load_checkpoint, save_checkpoint
 from ..utils.metrics import MetricsLogger
+from .augment import roll_batch
 from .loss import Draws, elbo_loss, standard_draws
 from .serve import Server, latest_checkpoint
 
@@ -123,7 +128,6 @@ class Trainer(Server):
         self.setup_start_time = time.time()
         not_ported = {
             "train_pnm": cfg.train_pnm,
-            "roll_augment": cfg.roll_augment,
             "mesh_data/mesh_angle > 1": cfg.mesh_data * cfg.mesh_angle > 1,
             "multihost": cfg.multihost,
             "stream_batches": cfg.stream_batches,
@@ -137,7 +141,7 @@ class Trainer(Server):
             if cfg.input_path is None:
                 raise ValueError(
                     "config.input_path is required (or pass sinograms/theta arrays); "
-                    "create a dataset first: python -m ct_pvae_tpu.cli make-data"
+                    "create a dataset first: python -m ct_pvae_tpu_torch.cli make-data"
                 )
             sinograms, theta, _ = data_io.load_dataset(cfg.input_path)
         super().__init__(cfg, sinograms, theta, dev, kernel_route)
@@ -170,11 +174,23 @@ class Trainer(Server):
             nan_zero_and_clip_(g, branch_halves(slot.block, slot.kind, g), cfg.norm)
             adam_(slot.param, g, slot.mu, slot.nu, corrections, cfg.learning_rate, cfg.adam_epsilon)
 
-    def loss_and_grads(self, batch_idx: torch.Tensor, angle_idx: torch.Tensor, draws: Draws):
+    def roll_indices(self, step: int) -> torch.Tensor:
+        """The roll augmentation's (B,) indices of step ``step``, in [0, A),
+        from a generator seeded from (seed, step): restart-invariant."""
+        gen = torch.Generator().manual_seed(
+            int(np.random.SeedSequence([self.cfg.seed, 2, step]).generate_state(1, np.uint64)[0]) >> 1)
+        k = torch.randint(0, self.num_angles, (self.cfg.batch_size,), generator=gen)
+        return k.to(self.device)
+
+    def loss_and_grads(self, batch_idx: torch.Tensor, angle_idx: torch.Tensor, draws: Draws,
+                       roll_k: Optional[torch.Tensor] = None):
         """The step's (loss, aux, grads) at the current state, kl anneal
-        already advanced; the gradients are those of ``jax.value_and_grad``."""
+        already advanced; the gradients are those of ``jax.value_and_grad``.
+        ``roll_k``: roll the batch by these indices first (``roll_batch``)."""
         cfg = self.cfg
         batch = {k: v.index_select(0, batch_idx) for k, v in self.data.items()}
+        if roll_k is not None:
+            batch = roll_batch(batch, self.theta_t, roll_k)
         loss, aux = elbo_loss(
             self.encoder, self.decoder,
             batch["input_encode"], batch["mask"], batch["proj_sample"], draws,
@@ -195,7 +211,8 @@ class Trainer(Server):
         """One step; returns the device row (loss, mean kl, loglik, kl_anneal)."""
         self.kl_anneal = float(np.clip(np.float32(self.kl_anneal) * np.float32(self.cfg.kl_anneal_factor),
                                        0.0, 100.0))
-        loss, aux, grads = self.loss_and_grads(batch_idx, angle_idx, draws)
+        roll_k = self.roll_indices(self.step) if self.cfg.roll_augment else None
+        loss, aux, grads = self.loss_and_grads(batch_idx, angle_idx, draws, roll_k)
         self._adam_update(grads)
         self.step += 1
         return torch.stack([loss.detach(), aux.kl.detach().mean(), aux.loglik.detach(),

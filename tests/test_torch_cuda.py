@@ -375,3 +375,95 @@ def test_gather_route_on_a_cuda_tensor(cuda):
     torch.testing.assert_close(out.detach().cpu(), ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
     torch.testing.assert_close(x.grad.cpu(), x_cpu.grad, rtol=1e-5,
                                atol=1e-5 * float(x_cpu.grad.abs().max()))
+
+
+# The stretch recipe (configs/foam_stretch.yaml): 512^2 foams padded to
+# 728 pixels, 360 angles, a 728-bin detector.
+_STRETCH_THETA = np.linspace(0, np.pi, 360, endpoint=False).astype(np.float32)
+
+
+@pytest.mark.parametrize("batch", [16, 64, 36])
+def test_radon_fast_takes_kernel_c_at_the_stretch_shape(cuda, batch):
+    """make-data's projection on the card: radon_fast pads the 512^2 images
+    to 728 and launches kernel C once per chunk (a full chunk of 64, the 16
+    of the smoke run's dataset, a ragged 36), never the gather projector;
+    against C's plain version, and <Cx, g> = <x, Dg> there."""
+    from ct_pvae_tpu_torch.ops.radon import pad_phantom, radon_fast
+
+    rng = np.random.default_rng(batch)
+    img = torch.as_tensor(rng.uniform(0, 1, (batch, 512, 512)).astype(np.float32), device=cuda)
+    theta_f = tuple(float(t) for t in _STRETCH_THETA)
+    calls, before = radon.CALLS["radon"], dict(jr.LAUNCHES)
+    out = radon_fast(img, _STRETCH_THETA, pad=True)
+    torch.cuda.synchronize()
+    assert out.shape == (batch, 360, 728)
+    assert jr.LAUNCHES["joseph_fwd_static"] == before["joseph_fwd_static"] + 1
+    assert radon.CALLS["radon"] == calls
+    padded = pad_phantom(img, 728)
+    _close(out, jr.radon_fused_plain(padded, jr.static_table(theta_f, 728, 728, cuda), 728))
+    g = torch.as_tensor(rng.uniform(0, 1, (batch, 360, 728)).astype(np.float32), device=cuda)
+    lhs = float((out.double() * g.double()).sum())
+    rhs = float((padded.double() * jr.backproject_static(g, theta_f, 728, 728).double()).sum())
+    assert abs(lhs - rhs) <= 1e-6 * abs(lhs)
+
+
+def test_radon_fast_takes_kernel_c_for_the_toy_objects(cuda):
+    """The toy make-data projection (2 x 2 images, 2 angles, no padding) on
+    kernel C, as the JAX package takes its Pallas kernel on a TPU: the
+    analytic column and flipped row sums."""
+    from ct_pvae_tpu_torch.data.toy import generate_toy_images, toy_theta
+    from ct_pvae_tpu_torch.ops.radon import radon_fast
+
+    imgs = generate_toy_images(16)
+    before = jr.LAUNCHES["joseph_fwd_static"]
+    sinos = radon_fast(torch.as_tensor(imgs, device=cuda), toy_theta()).cpu().numpy()
+    assert jr.LAUNCHES["joseph_fwd_static"] == before + 1
+    np.testing.assert_allclose(sinos[:, 0], imgs.sum(axis=1), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(sinos[:, 1], imgs.sum(axis=2)[:, ::-1], rtol=0, atol=1e-6)
+
+
+def test_fbp_past_512_detector_pixels_takes_kernel_d(cuda):
+    """The stretch init stack's FBP (a 728-bin detector onto 728^2) on the
+    card: kernel D once, no gather call, equal to the ramp filter and D's
+    plain version; the gather backprojector stays the route below 512."""
+    from ct_pvae_tpu_torch.ops.fbp import fbp, filter_sinogram
+
+    rng = np.random.default_rng(728)
+    theta = torch.as_tensor(_STRETCH_THETA, device=cuda)
+    sino = torch.as_tensor(rng.uniform(0, 1, (2, 360, 728)).astype(np.float32), device=cuda)
+    calls, before = radon.CALLS["radon"], dict(jr.LAUNCHES)
+    out = fbp(sino, theta, 728, 728)
+    torch.cuda.synchronize()
+    assert jr.LAUNCHES["joseph_adj_static"] == before["joseph_adj_static"] + 1
+    table = jr.static_table(tuple(float(t) for t in _STRETCH_THETA), 728, 728, cuda)
+    want = jr.radon_fused_adjoint_plain(filter_sinogram(sino), table, 728) * (np.pi / (2 * 360))
+    _close(out, want)
+    small = fbp(sino[..., :184].contiguous(), theta, 184, 184)
+    assert jr.LAUNCHES["joseph_adj_static"] == before["joseph_adj_static"] + 1
+    assert small.shape == (2, 184, 184) and radon.CALLS["radon"] == calls
+
+
+def test_make_data_on_the_card_gives_the_analytic_toy_sinograms(cuda, tmp_path):
+    from ct_pvae_tpu_torch.data.sinogram import make_dataset
+
+    before = jr.LAUNCHES["joseph_fwd_static"]
+    images, sinos, theta = make_dataset("toy", 64, save_path=str(tmp_path / "dataset_toy"))
+    assert jr.LAUNCHES["joseph_fwd_static"] == before + 1
+    assert sinos.shape == (64, 2, 2) and (tmp_path / "toy_training.npy").exists()
+    np.testing.assert_allclose(sinos[:, 0], images.sum(axis=1), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(sinos[:, 1], images.sum(axis=2)[:, ::-1], rtol=0, atol=1e-6)
+
+
+def test_gridrec_on_the_card_matches_the_cpu(cuda):
+    """Fourier gridrec at the stretch geometry (4 sinograms of 360 angles x
+    728 bins onto 728^2; its matmul tables would pass 512 MB, so it
+    scatters) on the card against the CPU: the same taps (sample positions
+    from the CPU), another summation order and another FFT."""
+    from ct_pvae_tpu_torch.ops.gridrec import gridrec
+
+    rng = np.random.default_rng(11)
+    sino = torch.as_tensor(rng.uniform(0, 1, (4, 360, 728)).astype(np.float32))
+    theta = torch.as_tensor(_STRETCH_THETA)
+    want = gridrec(sino, theta, 728, 728)
+    got = gridrec(sino.to(cuda), theta.to(cuda), 728, 728).cpu()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5

@@ -10,8 +10,10 @@ y-major ones, finds the positions of that group's rows by a prefix count
 ``a`` from the row at position ``a``.  These tests mirror that search and
 the kernel's row loop (lines split into two halves, added into zeros)
 and hold them against the plain version, on the serve and train shapes'
-angle sets and on ragged ones (one axis only, fewer rows than a block,
-duplicate angles, indices all past 20).  The kernels run only on the card
+angle sets, on the stretch recipe's (its 512^2 recon onto 728 bins: 20 of
+its 360 angles, and all 360 for the final evaluation) and on ragged ones
+(one axis only, fewer rows than a block, duplicate angles, indices all past
+20).  The kernels run only on the card
 (``tests/test_torch_cuda.py``).
 """
 
@@ -32,9 +34,13 @@ def _paper_theta() -> np.ndarray:
     return np.asarray(theta, np.float32)
 
 
+STRETCH_THETA = np.linspace(0, np.pi, 360, endpoint=False).astype(np.float32)
+
+
 def _angle_sets():
     """Angle index sets of a call, by name: the serve and train shapes and
-    the ragged cases."""
+    the ragged cases of the paper recipe (theta of dataset_foam), then the
+    stretch recipe's train and final-evaluation sets (``STRETCH_THETA``)."""
     theta = _paper_theta()
     rng = np.random.default_rng(9)
     flags = jr.angle_table_fused(theta, 128, 128, 184)[:, 4] > 0.5
@@ -46,7 +52,22 @@ def _angle_sets():
         "one axis": rng.choice(x_major, 20, replace=False),
         "few rows": rng.permutation(180)[:3],
         "duplicates": np.array([5, 5, 170, 90, 5, 170, 33]),
+        "stretch train": np.random.default_rng(10).permutation(360)[:20],
+        "stretch eval": np.arange(360),
     }
+
+
+def _call_rows(case, n=None, n_det=None):
+    """The (A, 8) kernel rows of a call: the case's angles of its recipe's
+    table, at the recipe's recon geometry (128^2 onto 184 bins; stretch:
+    512^2 onto 728) unless ``n`` and ``n_det`` say otherwise."""
+    theta, sets = _angle_sets()
+    if case.startswith("stretch"):
+        theta, geometry = STRETCH_THETA, (512, 728)
+    else:
+        geometry = (128, 184)
+    n, n_det = (n, n_det) if n is not None else geometry
+    return jr.kernel_rows(jr.angle_table_fused(theta, n, n, n_det))[sets[case]]
 
 
 def _block_rows(flags, block_y, per_block, threads):
@@ -83,10 +104,10 @@ def _groups(flags, per_block, threads):
 
 
 @pytest.mark.parametrize("per_block, threads", [(8, 64), (16, 512), (16, 768)])
-@pytest.mark.parametrize("case", ["serve", "train", "past 20", "one axis", "few rows", "duplicates"])
+@pytest.mark.parametrize("case", ["serve", "train", "past 20", "one axis", "few rows", "duplicates",
+                                  "stretch train", "stretch eval"])
 def test_each_call_position_lands_in_exactly_one_group(case, per_block, threads):
-    theta, sets = _angle_sets()
-    rows = jr.kernel_rows(jr.angle_table_fused(theta, 128, 128, 184))[sets[case]]
+    rows = _call_rows(case)
     flags = rows[:, 4] > 0.5
     groups = _groups(flags, per_block, threads)
     seen = [q for _, angle in groups for q in angle]
@@ -151,17 +172,17 @@ def _mul_add(a, b, c):
 
 
 @pytest.mark.parametrize("per_block", [8, 16])
-@pytest.mark.parametrize("case", ["train", "one axis", "duplicates"])
+@pytest.mark.parametrize("case", ["train", "one axis", "duplicates", "stretch train"])
 def test_row_loop_on_grouped_rows_matches_the_plain_version(case, per_block):
     """The rows of a subset, grouped on the device, reproduce radon_fused_plain
     on a small image (17^2 onto 26 bins: the halves of the lines end off a
     multiple of 4, and two halves of floor(17 / 2) lines rounded up to 4
-    would miss the last line) in every output position, and the empty rows
-    add nothing."""
-    theta, sets = _angle_sets()
-    n, n_det = 17, 26
-    rows = jr.kernel_rows(jr.angle_table_fused(theta, n, n, n_det))[sets[case]]
-    image = np.random.default_rng(1).uniform(0, 1, (3, n, n)).astype(np.float32)
+    would miss the last line), and on the stretch recipe's train call at its
+    own geometry (one 512^2 image onto 728 bins: the image narrower than the
+    detector), in every output position, and the empty rows add nothing."""
+    n, n_det, batch = (512, 728, 1) if case.startswith("stretch") else (17, 26, 3)
+    rows = _call_rows(case, n, n_det)
+    image = np.random.default_rng(1).uniform(0, 1, (batch, n, n)).astype(np.float32)
     out = _forward_by_groups(image, rows, n_det, per_block)
     ref = jr.radon_fused_plain(torch.from_numpy(image), torch.from_numpy(rows[:, :5].copy()), n_det).numpy()
     assert not np.isnan(out).any()

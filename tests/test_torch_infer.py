@@ -149,6 +149,7 @@ def test_port_imports_nothing_of_jax():
     for module in ("vi/train.py", "ops/sirt.py", "ops/tv.py", "utils/batching.py",
                    "utils/metrics.py", "utils/flax_msgpack.py", "ops/joseph_radon.py",
                    "ops/radon.py", "ops/conv_fused.py", "scripts/probe_conv_fused.py",
-                   "utils/yaml_subset.py"):
+                   "utils/yaml_subset.py", "ops/gridrec.py", "data/foam.py", "data/toy.py",
+                   "data/sinogram.py", "vi/augment.py"):
         assert os.path.join("ct_pvae_tpu_torch", module) in scanned, module
     assert num_proj_pixels(128, 128) == 184  # the foam geometry the port serves

@@ -94,12 +94,15 @@ def test_cheap_init_stack_matches_jax():
 
 
 def test_iterative_init_without_cheap_init_is_not_ported():
-    """sirt and tv are ported now (test_full_init_stack_matches_jax_tpu_route);
-    the Fourier-regridding gridrec is the init algorithm still to port."""
+    """sirt and tv are ported (test_full_init_stack_matches_jax_tpu_route),
+    and so is the Fourier-regridding gridrec (tests/test_torch_recon.py):
+    every init algorithm of the JAX package runs, and an unknown one raises."""
     sino, theta = _sino(4)
     m = masks.make_masks(B, A, 6, seed=1)
-    with pytest.raises(NotImplementedError, match="gridrec_fourier"):
-        classical_recon_stack(sino, m, theta, ["gridrec_fourier", "fbp"], 20, 20, CPU)
+    stack = classical_recon_stack(sino, m, theta, ["gridrec_fourier", "fbp"], 20, 20, CPU)
+    assert stack.shape == (B, 20, 20, 3) and np.isfinite(stack).all()
+    with pytest.raises(NotImplementedError, match="nufft"):
+        classical_recon_stack(sino, m, theta, ["nufft", "fbp"], 20, 20, CPU)
 
 
 def test_full_init_stack_matches_jax_tpu_route(monkeypatch):

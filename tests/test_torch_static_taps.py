@@ -11,8 +11,10 @@ a multiple of 4.  These tests hold
 that window against every tap of the forward (kernel C's ``joseph_pos`` /
 ``joseph_hat``, the plain version's arithmetic) and the band against every
 window, on the paper (init) geometry, on the recon geometry that kernels A
-and B serve (128^2 onto 184 bins: all 180 angles and a 20-angle subset)
-and on edge tables, with pos and u computed both with fused multiply-adds
+and B serve (128^2 onto 184 bins: all 180 angles and a 20-angle subset),
+on the stretch recipe's init geometry (728^2 onto 728 bins, the angles of
+its 360 at and beside 0, pi/4, pi/2 and 3 pi/4, where the slopes peak and
+the major axis turns) and on edge tables, with pos and u computed both with fused multiply-adds
 (emulated in float64, then rounded to float32) and without; they run the
 whole window search on a small batch against the plain adjoint.  The CUDA
 kernels themselves run only on the card (``tests/test_torch_cuda.py``).
@@ -102,7 +104,10 @@ def _missed_taps(rows, n, n_det, pos_mul_add, u_mul_add, chunk=20):
 
 # 20 of the 180 angles, drawn as a train step draws them, all past the first 20
 RECON_SUBSET = np.sort(np.random.default_rng(20).choice(np.arange(20, 180), 20, replace=False))
-GEOMETRIES = ["paper", "recon", "recon subset", "edge 32x48", "edge 48x32"]
+# the stretch recipe's 360 angles (configs/foam_stretch.yaml): 12 of them, a
+# full walk of all 360 at 728^2 takes minutes
+STRETCH_SUBSET = np.array([0, 1, 89, 90, 91, 179, 180, 181, 269, 270, 271, 359])
+GEOMETRIES = ["paper", "recon", "recon subset", "stretch", "edge 32x48", "edge 48x32"]
 
 
 def _geometry(name):
@@ -112,6 +117,8 @@ def _geometry(name):
         return _paper_theta(), 128, 184
     if name == "recon subset":
         return _paper_theta()[RECON_SUBSET], 128, 184
+    if name == "stretch":  # the stretch init stack: 728^2 onto 728 bins
+        return np.linspace(0, np.pi, 360, endpoint=False).astype(np.float32)[STRETCH_SUBSET], 728, 728
     theta = np.asarray(EDGE_ANGLES + (np.pi / 4 + 1e-7, np.pi / 4 - 1e-7, 1e-7), np.float32)
     return (theta, 32, 48) if name == "edge 32x48" else (theta, 48, 32)
 
