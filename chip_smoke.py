@@ -34,12 +34,16 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
   5. train   - ``ct_pvae_tpu_torch.cli train`` restores the r4 checkpoint
                (params and Adam state) and trains 100 more steps at full
                width on the first 100 sinograms, with the paper's init stack
-               (sirt/tv through C and D); launch counts, finite losses,
+               (sirt/tv through C and D), r4's steps_per_call 8 replaying the
+               captured train step (A and B inside the graph); launch counts
+               (each replay counts what its capture launched), finite losses,
                posterior-mean PSNR of the final evaluation, one train step
-               (loss and every gradient) held against the port's CPU path,
-               and a torch.profiler view of the step
+               (loss and every gradient) held against the port's CPU path on
+               the card step's recorded draws, and a torch.profiler view of
+               the eager step
   6. gather  - ``cli train --config configs/toy.yaml`` on dataset_toy_discrete2
-               (64 sinograms, a 2-pixel detector), cut to 200 steps: the
+               (64 sinograms, a 2-pixel detector), cut to 200 steps in
+               graphed chunks of 8: the
                gather projector's calls move and no Joseph kernel launches,
                finite losses, one toy train step held against the CPU path
                and a torch.profiler view of it
@@ -72,6 +76,30 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
                with their adjoint identities; the ramp FBP of the 16
                sinograms through D against the gather route (PSNR >= 15
                dB on D's) and gridrec_fourier on the card against the CPU
+  10. options - from the restored r4 state, 24 steps as three chunks of 8
+               replays of the captured train step against 24 eager steps:
+               bitwise the same losses and params under cuDNN's
+               deterministic algorithms, within 1e-2 in the losses under its
+               default ones (beside two eager runs' own spread), launch
+               counts (A and B 24 each), then each one's device ms with the
+               host held out, wall ms and steps/s in turns;
+               ``scripts/step_cost.py`` (its train_graphed rows); then each
+               training option from scratch at paper width through ``cli
+               train`` for 17 steps (Beta latents and output, --det, dropout
+               0.1, InstanceNorm, train_pnm, conv_impl subpixel and im2col,
+               bfloat16, profile_steps 3): finite losses, a checkpoint, A
+               and B launches; from that checkpoint a chunk of 8 replays of
+               the option's captured step against the same 8 eager steps,
+               bitwise under cuDNN's deterministic algorithms; one step
+               against the CPU path (each tolerance widened by twice a
+               yardstick's distance on the card: the step with cuDNN off,
+               or in float32 for bfloat16); bfloat16 also under its own
+               distance from float32: the loss and the whole gradient
+               within it, and each block on the card's input within a
+               quarter of its float32 distance from the CPU's block, every
+               block but the output head storing bfloat16; the Beta and
+               --det runs served through ``cli infer``, the profile run's
+               trace
 
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; a line before them holds the per-kernel JSON.
@@ -114,6 +142,21 @@ CPU_STEP_LOSS_RTOL = 1e-5  # GPU vs CPU train step: the loss
 CPU_GRAD_RTOL = 2e-2       # and each gradient's error norm over its norm: cuDNN runs
                            # some backward convs as float32 FFTs (fft2d_r2c + complex
                            # gemm in the profile), 4.6e-3 at most on an H100
+                           # Phase 10 widens each by twice a yardstick's distance
+                           # on the card: cuDNN off (InstanceNorm amplifies float32
+                           # reordering where a channel's variance is small: 2.7e-2
+                           # in one bias on an H100) or, for bfloat16, float32
+BF16_FLOOR = 1e-3          # bfloat16 in effect: its step's gradient at least this far
+                           # (error norm over norm) from the float32 step's on the card
+BF16_STEP_FRAC = 1.0       # bfloat16 on the card against the CPU: the whole gradient
+                           # within its distance from the float32 step's, the loss
+                           # within 1e-5 plus its own (a rounding that flips cascades
+                           # through the model's 20-odd blocks: 0.53-0.75 of them on
+                           # an H100)
+BF16_BLOCK_FRAC = 0.25     # and each bfloat16 block, on the input the card gave it,
+                           # within a quarter of the same block's distance in float32
+                           # (tests/test_torch_train_options.py holds the CPU's
+                           # bfloat16 blocks to the JAX package's at that fraction)
 # the stretch recipe (configs/foam_stretch.yaml): its widths, with depth cut
 STRETCH_PIXELS, STRETCH_DETECTOR, STRETCH_ANGLES = 512, 728, 360
 STRETCH_FOAMS = 16       # of the recipe's 64: the host rasterises the foams
@@ -121,6 +164,24 @@ STRETCH_STEPS = 100      # of the recipe's 500
 TOY_IMAGES = 64
 TOY_ATOL = 1e-6          # toy sinograms on kernel C against the analytic sums
 GRIDREC_RTOL = 1e-5      # the tolerance tests/test_torch_recon.py holds gridrec to (of the max)
+# phase 10: the training options
+GRAPH_STEPS = 24         # graphed (K = 8) against eager (K = 1) from the restored r4 state
+GRAPH_DET_TOL = 1e-6     # with cuDNN's deterministic algorithms: their losses (relative) and params
+GRAPH_LOSS_RTOL = 1e-2   # with its default ones, whose atomics make two eager runs differ by 5e-5
+                         # in a loss over 8 steps and 1e-3 over 24 (H100): their losses
+OPT_SINOS = 20           # each option's dataset: the paper recipe's batch twice
+OPT_STEPS = 17           # the save boundary's 1-step chunk, then two graphed chunks of 8
+OPTIONS = {              # each option's config changes over the paper recipe
+    "beta": dict(use_normal=False),
+    "det": dict(deterministic=True),
+    "dropout": dict(dropout_prob=0.1),
+    "instance": dict(norm_type="instance"),
+    "train_pnm": dict(train_pnm=True),
+    "subpixel": dict(conv_impl="subpixel"),
+    "im2col": dict(conv_impl="im2col"),
+    "bfloat16": dict(compute_dtype="bfloat16"),
+    "profile": dict(profile_steps=3),
+}
 
 
 def log(msg: str) -> None:
@@ -362,8 +423,7 @@ def check_eval_step(cfg, sinos, theta, run_path, dev) -> None:
     import numpy as np
     import torch
 
-    from ct_pvae_tpu_torch.vi.infer import TorchSampler
-    from ct_pvae_tpu_torch.vi.loss import Draws
+    from ct_pvae_tpu_torch.vi.loss import Draws, standard_draws
     from ct_pvae_tpu_torch.vi.serve import Server
 
     eval_cfg = cfg.replace(save_path=None, truncate_dataset=len(sinos), cheap_init=True,
@@ -377,7 +437,8 @@ def check_eval_step(cfg, sinos, theta, run_path, dev) -> None:
             srv_gpu = srv
         if draws is None:
             shapes, out_shape = srv.draw_shapes(len(sinos))
-            draws = TorchSampler(1, dev)(0, 0, shapes, out_shape, cfg.num_samples)
+            draws = standard_draws(torch.Generator(device=dev).manual_seed(1), shapes, out_shape,
+                                   cfg.num_samples, dev)
         d_draws = Draws([[e.to(d) for e in es] for es in draws.eps], [u.to(d) for u in draws.u])
         loss, aux = srv.eval_step(torch.arange(len(sinos), device=d), d_draws)
         results.append((float(loss), aux.recon_mean.cpu().numpy()))
@@ -419,65 +480,155 @@ def profile_eval_step(srv, draws, steps: int = 5) -> None:
             f"{100 * e.self_device_time_total / max(device_us, 1e-9):5.1f}%  x{e.count // steps}  {e.key[:90]}")
 
 
-def check_train_step(cfg, sinos, theta, run_path, dev, label="train"):
+def check_train_step(cfg, sinos, theta, run_path, dev, label="train", yardstick=None):
     """One train step of a run's restored model on the card against the
     port's CPU path, on the same params, batch, angles and draws: loss and
-    every gradient.  The CPU trainer reads the card's masks, measurements and
+    every gradient.  The card's step draws from a generator and records its
+    draws (normals, uniforms, log-gamma variates, dropout masks); the CPU
+    replays them.  The CPU trainer reads the card's masks, measurements and
     init stack from their cache files, and takes the card's projector route.
-    Returns the card's trainer."""
+    ``yardstick``: a second card step on the same draws whose distance from
+    the first widens each tolerance by twice that distance, tensor by
+    tensor: "cudnn off" (the same float32 function summed in another order,
+    PyTorch's own CUDA convolutions in place of cuDNN's), or "float32" (for
+    a bfloat16 run: bfloat16's own distance from float32, which widens the
+    loss by ``BF16_STEP_FRAC`` of it).  A bfloat16 run must also lie under
+    that distance: each block of the card's step, on the input the card
+    gave it, within ``BF16_BLOCK_FRAC`` of its own float32 distance from the
+    CPU's bfloat16 block (``check_bf16_blocks``), and the whole gradient
+    within ``BF16_STEP_FRAC`` of it (and it at least ``BF16_FLOOR``).
+    Returns the card's trainer and the step's (batch, angle) indices."""
     import numpy as np
     import torch
 
+    from ct_pvae_tpu_torch.vi.loss import Draws, GeneratorDraws
     from ct_pvae_tpu_torch.vi.train import Trainer
 
     tcfg = cfg.replace(save_path=run_path, truncate_dataset=len(sinos), restore=True,
-                       use_latest_ckpt=True, reuse_cache=True)
+                       use_latest_ckpt=True, reuse_cache=True, profile_steps=0)
+    cpu_dev = torch.device("cpu")
     gpu = Trainer(tcfg, sinos, theta, dev)
-    cpu = Trainer(tcfg, sinos, theta, torch.device("cpu"), kernel_route=True)
+    cpu = Trainer(tcfg, sinos, theta, cpu_dev, kernel_route=True)
     if gpu.joseph != cpu.joseph:
         raise AssertionError("the CPU trainer took another projector route than the card's")
     rng = np.random.default_rng(0)
     bidx = rng.permutation(len(sinos))[: cfg.batch_size]
     aidx = rng.permutation(len(theta))[: cfg.angles_per_iter]
-    shapes, out_shape = gpu.draw_shapes(cfg.batch_size)
-    draws = gpu.sampler("train", gpu.step, shapes, out_shape, cfg.num_samples)
-    out = []
-    for tr in (gpu, cpu):
-        d = tr.device
-        dd = type(draws)([[e.to(d) for e in es] for es in draws.eps], [u.to(d) for u in draws.u])
-        loss, _, grads = tr.loss_and_grads(torch.as_tensor(bidx, device=d),
-                                           torch.as_tensor(aidx, device=d), dd)
-        out.append((loss.item(), [g.cpu() for g in grads]))
-    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
-    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    recorder = GeneratorDraws(torch.Generator(device=dev).manual_seed(gpu.step), dev, record=True)
+
+    def step(tr, draws):
+        loss, _, grads = tr.loss_and_grads(bidx, aidx, draws)
+        return loss.item(), [g.cpu() for g in grads]
+
+    def replay(d):  # the card's draws on device d
+        rec = recorder.recorded(cfg.num_samples)
+        on = lambda xs: None if xs is None else [x.to(d) for x in xs]
+        return Draws([on(e) for e in rec.eps], on(rec.u), on(rec.log_gamma), on(rec.keep))
+
+    seen = []  # (block, input, output) of each block the card's step runs
+    hooks = [blk.register_forward_hook(lambda mod, args, out: seen.append((mod, args[0].detach(),
+                                                                           out.detach())))
+             for model in gpu.models.values() for blk in model.blocks] if yardstick == "float32" else []
+    l_gpu, g_gpu = step(gpu, recorder)
+    for h in hooks:
+        h.remove()
+    l_cpu, g_cpu = step(cpu, replay(cpu_dev))
     names = [f"{m}.{k}" for m, model in gpu.models.items() for k, _ in model.named_parameters()]
-    errs = sorted(((float((a - b).norm() / b.norm().clamp_min(1e-30)), k)
-                   for k, a, b in zip(names, g_gpu, g_cpu)), reverse=True)
-    whole = float(torch.cat([(a - b).flatten() for a, b in zip(g_gpu, g_cpu)]).norm()
-                  / torch.cat([b.flatten() for b in g_cpu]).norm())
+    names += ["log_pnm"] * (gpu.log_pnm is not None)
+    apart = lambda ga, gb: [float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(ga, gb)]
+    loss_tol, grad_tol = CPU_STEP_LOSS_RTOL, [CPU_GRAD_RTOL] * len(names)
+    if yardstick is not None:
+        if yardstick == "float32":
+            l_ref, g_ref = step(Trainer(tcfg.replace(compute_dtype="float32"), sinos, theta, dev),
+                                replay(dev))
+        else:
+            torch.backends.cudnn.enabled = False
+            try:
+                l_ref, g_ref = step(gpu, replay(dev))
+            finally:
+                torch.backends.cudnn.enabled = True
+        yard = apart(g_gpu, g_ref)
+        loss_tol += (BF16_STEP_FRAC if yardstick == "float32" else 2) * abs(l_gpu - l_ref) / abs(l_ref)
+        grad_tol = [t + 2 * y for t, y in zip(grad_tol, yard)]
+        log(f"[{label}] yardstick: the card's step against the card's step with {yardstick}: loss "
+            f"rel {abs(l_gpu - l_ref) / abs(l_ref):.2e}, gradients largest "
+            f"{', '.join(f'{k} {e:.2e}' for e, k in sorted(zip(yard, names), reverse=True)[:3])}")
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    errs = apart(g_gpu, g_cpu)
+    worst = sorted(zip([e / t for e, t in zip(errs, grad_tol)], errs, grad_tol, names), reverse=True)
+    whole_apart = lambda ga, gb: float(torch.cat([(a - b).flatten() for a, b in zip(ga, gb)]).norm()
+                                       / torch.cat([b.flatten() for b in gb]).norm())
+    whole = whole_apart(g_gpu, g_cpu)
     log(f"[{label}] one step GPU vs CPU: loss {l_gpu:.7g} vs {l_cpu:.7g} (rel {rel:.2e}, tolerance "
-        f"{CPU_STEP_LOSS_RTOL:g}); gradient error norm / norm: all {len(g_gpu)} tensors together "
-        f"{whole:.2e}, largest {', '.join(f'{k} {e:.2e}' for e, k in errs[:3])} "
-        f"(tolerance {CPU_GRAD_RTOL:g} each)")
-    if not (rel <= CPU_STEP_LOSS_RTOL and errs[0][0] <= CPU_GRAD_RTOL):
+        f"{loss_tol:.3g}); gradient error norm / norm: all {len(g_gpu)} tensors together "
+        f"{whole:.2e}, nearest their tolerance "
+        f"{', '.join(f'{k} {e:.2e} (tolerance {t:.3g})' for _, e, t, k in worst[:3])}")
+    if yardstick == "float32":
+        check_bf16_blocks(seen, label)
+    if not (rel <= loss_tol and worst[0][0] <= 1.0):
         raise AssertionError(f"{label}: GPU train step disagrees with the CPU path")
+    if yardstick == "float32":
+        gap = whole_apart(g_gpu, g_ref)
+        log(f"[{label}] bfloat16 under its own distance from float32: all gradients together, the "
+            f"card's bfloat16 step from the CPU's {whole:.2e}, from the card's float32 step {gap:.2e} "
+            f"(at most {BF16_STEP_FRAC:g} of it, and it at least {BF16_FLOOR:g}); per tensor, the "
+            f"largest share of that tensor's own distance "
+            f"{max(e / max(y, 1e-30) for e, y in zip(errs, yard)):.2f}")
+        if not (gap >= BF16_FLOOR and whole <= BF16_STEP_FRAC * gap):
+            raise AssertionError(f"{label}: the card's bfloat16 step is not the CPU's bfloat16 step")
     return gpu, bidx, aidx
 
 
+def check_bf16_blocks(seen, label: str) -> None:
+    """Each block of a bfloat16 step on the card, on the input the card gave
+    it, against the same block on the CPU in bfloat16: within
+    ``BF16_BLOCK_FRAC`` of the block's distance in float32 (on the card) from
+    the CPU's, error norms over norms; every block but the decoder's output
+    head hands on bfloat16, the head float32 (at the float32 step's
+    tolerance)."""
+    import torch
+    from torch.func import functional_call
+
+    rows, bad = [], []
+    for i, (blk, x, out) in enumerate(seen):
+        on_cpu = {k: v.detach().cpu() for k, v in [*blk.named_parameters(), *blk.named_buffers()]}
+        dtype = blk.dtype
+        with torch.no_grad():
+            want = functional_call(blk, on_cpu, (x.cpu(),)).float()
+            blk.dtype = torch.float32  # the same block in float32, on the card
+            try:
+                gap = float((blk(x).float().cpu() - want).norm() / want.norm())
+            finally:
+                blk.dtype = dtype
+        err = float((out.float().cpu() - want).norm() / want.norm())
+        head = i == len(seen) - 1
+        ok = (out.dtype == torch.float32 and err <= CPU_GRAD_RTOL) if head else \
+            (out.dtype == torch.bfloat16 and err <= BF16_BLOCK_FRAC * gap)
+        rows.append((err, gap))
+        if not ok:
+            bad.append((i, str(out.dtype), err, gap))
+    frac = max(e / g for e, g in rows[:-1])
+    log(f"[{label}] per block (error norm / norm, float32 distance): "
+        f"{', '.join(f'{e:.1e}/{g:.1e}' for e, g in rows)}")
+    log(f"[{label}] {len(seen)} blocks on the card's inputs, card against CPU in bfloat16: error norm "
+        f"/ norm at most {max(e for e, _ in rows[:-1]):.2e}, at most {frac:.3f} of the block's float32 "
+        f"distance (tolerance {BF16_BLOCK_FRAC:g}; smallest distance {min(g for _, g in rows[:-1]):.2e}); "
+        f"output head float32, {rows[-1][0]:.2e}")
+    if bad:
+        raise AssertionError(f"{label}: bfloat16 blocks (index, dtype, err, float32 distance): {bad}")
+
+
 def profile_train_step(tr, bidx, aidx, steps: int = 5, label: str = "train step") -> dict:
-    """torch.profiler's device time by kernel over ``steps`` train steps,
-    against their synchronised wall time."""
+    """torch.profiler's device time by kernel over ``steps`` eager train
+    steps, against their synchronised wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg = tr.cfg
-    shapes, out_shape = tr.draw_shapes(cfg.batch_size)
-    b = torch.as_tensor(bidx, device=tr.device)
-    a = torch.as_tensor(aidx, device=tr.device)
 
     def step():
-        return tr.train_step(b, a, tr.sampler("train", tr.step, shapes, out_shape, cfg.num_samples))
+        return tr.train_step(bidx, aidx)
 
     for _ in range(2):
         step()
@@ -736,6 +887,224 @@ def phase_stretch(dev, smi: str, records: dict) -> dict:
         records[name]["stretch"] = dict(rec, launches=launches[name])
     log("[stretch] ok")
     return launches
+
+
+def graph_runs(tcfg, sinos, theta, dev, bidx, aidx, modes):
+    """A trainer restored per ``tcfg``, its step captured, and each mode's
+    steps ("graphed": chunks of ``steps_per_call`` replays; "eager": one
+    eager step each) on the given indices from that same state: each run's
+    rows, params and launches.  Returns (trainer, the modes' calls, capture
+    seconds with the warm-up, runs)."""
+    import torch
+
+    from ct_pvae_tpu_torch.ops import joseph_radon as jr
+    from ct_pvae_tpu_torch.vi.train import Trainer
+
+    tr = Trainer(tcfg, sinos, theta, dev)
+    k = tcfg.steps_per_call
+    state = [t for slot in tr.slots for t in (slot.param, slot.mu, slot.nu)]
+    saved = [t.detach().clone() for t in state]
+    host_state = (tr.step, tr.adam_count, tr.kl_anneal)
+    fns = {
+        "graphed": lambda: torch.cat([tr.train_chunk(bidx[i:i + k], aidx[i:i + k])
+                                      for i in range(0, len(bidx), k)]),
+        "eager": lambda: torch.stack([tr.train_step(b, a) for b, a in zip(bidx, aidx)]),
+    }
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.capture_step()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    runs = []
+    for mode in modes:
+        with torch.no_grad():
+            for t, v in zip(state, saved):
+                t.copy_(v)
+        tr.step, tr.adam_count, tr.kl_anneal = host_state
+        reset_counts()
+        rows = fns[mode]()
+        runs.append(dict(rows=rows.cpu(), launches=dict(jr.LAUNCHES),
+                         params=torch.cat([s.param.detach().flatten() for s in tr.slots]).cpu()))
+    return tr, fns, capture_s, runs
+
+
+def runs_apart(x, y):
+    """(max rel loss diff, max abs param diff, share of params within 1e-6)."""
+    loss = float(((x["rows"][:, 0] - y["rows"][:, 0]).abs() / y["rows"][:, 0].abs()).max())
+    diff = (x["params"] - y["params"]).abs()
+    return loss, float(diff.max()), float((diff <= 1e-6).float().mean())
+
+
+def graphed_is_eager(tcfg, sinos, theta, dev, bidx, aidx, label: str) -> None:
+    """Under cuDNN's deterministic algorithms, the replays of the captured
+    step and the same eager steps from one state: losses and params within
+    ``GRAPH_DET_TOL``, A and B once a step in both."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr, _, capture_s, (g, e) = graph_runs(tcfg, sinos, theta, dev, bidx, aidx, ("graphed", "eager"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del tr
+    loss_d, param_d, _ = runs_apart(g, e)
+    n = len(bidx)
+    expected = {key: n if key in ("joseph_fwd", "joseph_adj") else 0 for key in g["launches"]}
+    log(f"[{label}] {n} steps graphed (K = {tcfg.steps_per_call}: {-(-n // tcfg.steps_per_call)} chunks "
+        f"of replays; capture with its warm-up {capture_s:.2f} s) against eager (K = 1) with cuDNN's "
+        f"deterministic algorithms: losses max rel diff {loss_d:.2e}, params max abs diff "
+        f"{param_d:.2e} (tolerance {GRAPH_DET_TOL:g} each); launches graphed {g['launches']}, eager "
+        f"{e['launches']} (A and B {n} each, no other)")
+    if not (loss_d <= GRAPH_DET_TOL and param_d <= GRAPH_DET_TOL
+            and g["launches"] == e["launches"] == expected and torch.isfinite(g["rows"]).all()):
+        raise AssertionError(f"{label}: the graphed train step is not the eager step")
+
+
+def phase_options(dev, smi: str) -> dict:
+    """Phase 10: the training options.  From the restored r4 state, 24 steps
+    graphed (K = 8, three replayed chunks) against 24 eager steps (K = 1):
+    losses, params, launch counts, and each one's device ms with the host
+    held out, wall ms and steps/s; ``scripts/step_cost.py``, whose train
+    rows include the graphed step.  Then each option trained from scratch at
+    paper width through ``cli train`` (graphed chunks but under
+    ``profile_steps``): finite losses, a checkpoint, A and B launches; from
+    its checkpoint one chunk of 8 replays against the same 8 eager steps
+    under cuDNN's deterministic algorithms; one step against the CPU path
+    (bfloat16 also under its own distance from float32, step and blocks);
+    the Beta and --det runs served through ``cli infer``; the profile run's
+    trace.  Returns the graphed and eager numbers."""
+    import numpy as np
+    import torch
+
+    from ct_pvae_tpu_torch import cli
+    from ct_pvae_tpu_torch.config import Config
+    from ct_pvae_tpu_torch.data.io import load_dataset
+    from ct_pvae_tpu_torch.ops import joseph_radon as jr
+    from ct_pvae_tpu_torch.scripts import step_cost
+    from ct_pvae_tpu_torch.utils.batching import IndexStream
+
+    r4 = os.path.join(REPO, "results", "foam_paper_run_r4")
+    cfg = Config.load(os.path.join(r4, "config.json"))
+    sinos_all, theta, _ = load_dataset(os.path.join(REPO, "dataset_foam"))
+    k = cfg.steps_per_call
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as tmp:
+        # -- 10.1 the graphed step against the eager step ---------------------
+        run = os.path.join(tmp, "r4")
+        os.makedirs(os.path.join(run, "training_checkpoints"))
+        os.symlink(os.path.join(r4, "ckpt-100000.msgpack"),
+                   os.path.join(run, "training_checkpoints", "ckpt-100000.msgpack"))
+        tcfg = cfg.replace(save_path=run, truncate_dataset=N_TRAIN, restore=True, use_latest_ckpt=True,
+                           reuse_cache=False, cheap_init=True)
+        streams = [IndexStream(N_TRAIN, cfg.batch_size, cfg.seed + 1),
+                   IndexStream(len(theta), cfg.angles_per_iter, cfg.seed + 2)]
+        for st in streams:
+            st.skip(100000)
+        bidx = [streams[0].next() for _ in range(GRAPH_STEPS)]
+        aidx = [streams[1].next() for _ in range(GRAPH_STEPS)]
+        expected = {"joseph_fwd": GRAPH_STEPS, "joseph_adj": GRAPH_STEPS, "joseph_fwd_static": 0,
+                    "joseph_adj_static": 0}
+
+        # cuDNN's deterministic algorithms: the graph must replay the eager
+        # step's arithmetic, draws and scalars exactly
+        graphed_is_eager(tcfg, sinos_all[:N_TRAIN], theta, dev, bidx, aidx, "options r4")
+        # the default algorithms, as training runs them: some backward convs
+        # sum with atomics, so two eager runs differ too
+        tr, fns, capture_s, (g, e, e2) = graph_runs(tcfg, sinos_all[:N_TRAIN], theta, dev, bidx, aidx,
+                                                    ("graphed", "eager", "eager"))
+        (loss_g, param_g, within_g), (loss_e, param_e, within_e) = runs_apart(g, e), runs_apart(e2, e)
+        log(f"[options] the same with cuDNN's default algorithms (capture {capture_s:.2f} s): graphed "
+            f"against eager, losses max rel diff {loss_g:.2e} (tolerance {GRAPH_LOSS_RTOL:g}), params "
+            f"max abs diff {param_g:.2e}, {within_g:.2%} within 1e-6; eager against eager {loss_e:.2e}, "
+            f"{param_e:.2e}, {within_e:.2%}; launches {g['launches']}")
+        if not (loss_g <= GRAPH_LOSS_RTOL and g["launches"] == expected
+                and torch.isfinite(g["rows"]).all()):
+            raise AssertionError("the graphed train step strays from the eager step")
+        graphed, eager = fns["graphed"], fns["eager"]
+        # device ms with the host held out, then the walls in turns
+        timing = {}
+        dev_g, host_g, cov_g = cuda_time(lambda: tr.train_chunk(bidx[:k], aidx[:k]), 5)
+        dev_e, host_e, cov_e = cuda_time(lambda: tr.train_step(bidx[0], aidx[0]), 5)
+        walls = {"graphed": [], "eager": []}
+        for mode in ("graphed", "eager", "eager", "graphed"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (graphed if mode == "graphed" else eager)()
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - t0) * 1e3 / GRAPH_STEPS)
+        for mode, dev_ms, host_us, covered in (("graphed", dev_g / k, host_g / k, cov_g),
+                                               ("eager", dev_e, host_e, cov_e)):
+            wall = min(walls[mode])
+            timing[mode] = dict(device_ms=dev_ms, host_ms=host_us / 1e3, covered=covered,
+                                wall_ms=walls[mode], steps_per_s=1e3 / wall)
+            log(f"[options] {mode} paper train step (batch {cfg.batch_size}, {cfg.angles_per_iter} "
+                f"angles): device {dev_ms:.3f} ms with the host held out"
+                f"{'' if covered else ' (host in the window)'}, host {host_us / 1e3:.3f} ms to enqueue; "
+                f"wall {', '.join(f'{w:.3f}' for w in walls[mode])} ms a step over {GRAPH_STEPS} "
+                f"steps in turns = {1e3 / wall:.2f} steps/s at best on {smi}")
+        del tr, fns, graphed, eager
+        torch.cuda.empty_cache()
+        log("[options] python -m ct_pvae_tpu_torch.scripts.step_cost --steps 16 (train_graphed: "
+            f"chunks of {k} replays, per step)")
+        if step_cost.main(["--steps", "16"]) != 0:
+            raise AssertionError("step_cost.py failed")
+
+        # -- 10.2 each option from scratch at paper width ----------------------
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        np.save(os.path.join(data, "x_train_sinograms.npy"), np.asarray(sinos_all[:OPT_SINOS]))
+        shutil.copy(os.path.join(REPO, "dataset_foam", "dataset_parameters.npy"), data)
+        base = cfg.replace(restore=False, use_latest_ckpt=False, resume_total=False, reuse_cache=False,
+                           truncate_dataset=OPT_SINOS, input_path=data)
+        eval_batches = OPT_SINOS // cfg.batch_size
+        for name, over in OPTIONS.items():
+            ocfg = base.replace(**over)
+            cfg_path = os.path.join(tmp, f"{name}.json")
+            ocfg.save(cfg_path)
+            orun = os.path.join(tmp, name)
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["train", "--config", cfg_path, "--save_path", orun, "-i", str(OPT_STEPS)])
+            wall = time.perf_counter() - t0
+            launches = dict(jr.LAUNCHES)
+            losses = np.load(os.path.join(orun, "train_loss_vec.npy"))
+            train_min = float(np.load(os.path.join(orun, "training_time.npy")))
+            want_ab = (OPT_STEPS + eval_batches, OPT_STEPS)
+            ckpt = os.path.join(orun, "training_checkpoints", f"ckpt-{OPT_STEPS}.msgpack")
+            log(f"[options] {name} ({over}): {OPT_STEPS} steps from scratch in {wall:.2f} s (cli wall), "
+                f"{(OPT_STEPS - 1) / (train_min * 60):.2f} steps/s after the first; loss first "
+                f"{losses[0]:.6g}, last {losses[-1]:.6g}; A and B launches "
+                f"{launches['joseph_fwd']}, {launches['joseph_adj']} (expected {want_ab})")
+            if rc != 0 or losses.shape != (OPT_STEPS,) or not np.isfinite(losses).all() \
+                    or not os.path.exists(ckpt) \
+                    or (launches["joseph_fwd"], launches["joseph_adj"]) != want_ab:
+                raise AssertionError(f"option {name}: rc {rc}, losses {losses}, launches {launches}")
+            if name == "profile":
+                trace = os.path.join(orun, "profile", "trace.json")
+                size = os.path.getsize(trace) if os.path.exists(trace) else 0
+                log(f"[options] profile: {trace} written, {size} bytes")
+                if size == 0:
+                    raise AssertionError("profile_steps left no trace")
+            rng = np.random.default_rng(OPT_STEPS)
+            graphed_is_eager(ocfg.replace(save_path=orun, restore=True, use_latest_ckpt=True,
+                                          reuse_cache=True, profile_steps=0),
+                             sinos_all[:OPT_SINOS], theta, dev,
+                             [rng.permutation(OPT_SINOS)[: cfg.batch_size] for _ in range(k)],
+                             [rng.permutation(len(theta))[: cfg.angles_per_iter] for _ in range(k)],
+                             f"options {name}")
+            check_train_step(ocfg, sinos_all[: cfg.batch_size], theta, orun, dev, label=f"options {name}",
+                             yardstick="float32" if name == "bfloat16" else "cudnn off")
+            if name in ("beta", "det"):
+                out = os.path.join(tmp, f"{name}_served")
+                rc = cli.main(["infer", "--run_path", orun, "--input_path", data, "--output", out,
+                               "--cheap_init", "--passes", "2"])
+                mean = np.load(os.path.join(out, "reconstruction_mean.npy"))
+                std = np.load(os.path.join(out, "reconstruction_std.npy"))
+                log(f"[options] {name} served through cli infer: mean {mean.shape}, std in "
+                    f"[{std.min():.3g}, {std.max():.3g}]")
+                if rc != 0 or mean.shape[0] != OPT_SINOS or not np.isfinite(mean).all():
+                    raise AssertionError(f"cli infer of the {name} run failed")
+    log("[options] ok")
+    return timing
 
 
 def main() -> int:
@@ -1129,6 +1498,9 @@ def main() -> int:
 
     # -- 9. the stretch recipe: make-data, train, A-D, FBP and gridrec -----
     phase_stretch(dev, smi, records)
+
+    # -- 10. the training options ------------------------------------------
+    phase_options(dev, smi)
 
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     meta = {  # A and B run on C's and D's kernels

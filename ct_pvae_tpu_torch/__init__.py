@@ -12,7 +12,10 @@ slice 2 training (``python -m ct_pvae_tpu_torch.cli train``), slice 3 the
 gather-projector route with the toy recipe (``--config configs/toy.yaml``)
 and the fused conv probe (``python -m ct_pvae_tpu_torch.scripts.probe_conv_fused``),
 slice 7 data generation (``python -m ct_pvae_tpu_torch.cli make-data``) and
-the 512^2 stretch recipe (``--config configs/foam_stretch.yaml``).
+the 512^2 stretch recipe (``--config configs/foam_stretch.yaml``), slice 8
+the training options (``steps_per_call`` as a CUDA graph of the train step,
+``train_pnm``, dropout, InstanceNorm, Beta latents and output, ``--det``,
+``profile_steps``, ``conv_impl`` and bfloat16).
 """
 
 __version__ = "0.1.0"

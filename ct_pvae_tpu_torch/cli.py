@@ -92,12 +92,13 @@ def _add_train_args(p: argparse.ArgumentParser, suppress: bool = False) -> None:
            "port follows")
     a("--metrics_every", type=int, dest="metrics_every", default=50)
     a("--spc", type=int, dest="steps_per_call", default=8,
-      help="JAX scan fusion; the port runs one step per call whatever the value")
+      help="train steps per chunk: on the GPU each a replay of the captured CUDA graph "
+           "of the step; 1 = the eager step")
     a("--compute_dtype", dest="compute_dtype", default="float32")
     a("--conv_precision", dest="conv_precision", default=None,
       choices=["default", "high", "highest"])
     a("--conv_layout", dest="conv_layout", default="NHWC", choices=["NHWC", "NCHW"])
-    a("--conv_impl", dest="conv_impl", default="direct", choices=["direct", "subpixel"])
+    a("--conv_impl", dest="conv_impl", default="direct", choices=["direct", "subpixel", "im2col"])
     a("--config", dest="config_file", default=None, help="config file: a run's config.json or a YAML recipe (configs/*.yaml); "
                            "typed flags override it")
     a("--device", dest="device", default="cuda", help="torch device (default: cuda)")

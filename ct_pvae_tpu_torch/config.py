@@ -102,8 +102,12 @@ class Config:
     loss_scale: float = 1e5
     # Fields below steer the JAX package's multi-chip, Pallas and conv-layout
     # builds and its training loop.  The port keeps them so every run's
-    # config.json loads; serving reads none of them, and build_models
-    # accepts only the float32 / direct-conv settings it implements.
+    # config.json loads.  It reads use_pallas (the projector route),
+    # compute_dtype and conv_impl (build_models), metrics_every,
+    # profile_steps and steps_per_call (the train loop; on the GPU a chunk
+    # of steps_per_call steps replays a CUDA graph of the step); the mesh,
+    # multi-host and streaming fields raise when set, and conv_precision,
+    # conv_layout and buffer_size are TPU and input-pipeline knobs.
     mesh_data: int = 1
     mesh_angle: int = 1
     stream_batches: bool = False

@@ -1,10 +1,19 @@
 """Distributions of the ELBO (port of ``ct_pvae_tpu/prob/distributions.py``).
 
-``positive_range``, ``Normal``, ``TruncatedNormal`` and the Normal-Normal KL
-(distributions.py:32-135).  Sampling takes its draws as tensors (standard
-normal ``eps`` for Normal, uniform ``u`` on [EPS, 1-EPS) for the truncated
-normal's inverse CDF), so a test can feed the port and the JAX package the
-same numbers.
+``positive_range``, ``Normal``, ``TruncatedNormal``, ``Beta``, the
+Normal-Normal and Beta-Beta KLs (distributions.py:32-179, 269-276) and
+``betaln`` (the JAX package's, after scipy's ``betaln``/``algdiv``).
+Sampling takes its draws as tensors (standard normal ``eps`` for Normal,
+uniform ``u`` on [EPS, 1-EPS) for the truncated normal's inverse CDF, the
+log-gamma variates of each concentration for Beta), so a test can feed the
+port and the JAX package the same numbers.
+
+``jax.random.beta`` draws log-gamma variates and differentiates them by
+implicit reparameterisation: d log x / d a = (dF/da) / (dF/dx) / x at the
+drawn x, F the gamma CDF.  ``reparam_log_gamma`` attaches that gradient to
+given variates (torch's ``_standard_gamma_grad`` is the dF ratio), and
+``draw_log_gamma`` draws them as ``jax.random.loggamma`` does: a shape
+below 1 is boosted, log Ga(a) = log Ga(a + 1) + log(U) / a.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import torch
 EPS = float(torch.finfo(torch.float32).eps)
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+_TINY = float(torch.finfo(torch.float32).tiny)
 
 
 def positive_range(x: torch.Tensor, offset: float = EPS) -> torch.Tensor:
@@ -91,3 +101,99 @@ class TruncatedNormal:
         phi_b = torch.exp(-0.5 * b * b) * _INV_SQRT_2PI
         z = torch.clamp(torch.special.ndtr(b) - torch.special.ndtr(a), min=EPS)
         return self.loc + self.scale * (phi_a - phi_b) / z
+
+
+class _LogGammaReparam(torch.autograd.Function):
+    """Identity on log-gamma variates ``log_x`` drawn with shape ``alpha``,
+    whose gradient in ``alpha`` is the implicit one (``_gamma_grad`` of
+    ``jax.random.loggamma``): random_gamma_grad(alpha, x) / x, x = exp(log_x)
+    raised to the smallest normal float where it underflows."""
+
+    @staticmethod
+    def forward(ctx, alpha, log_x):
+        ctx.save_for_backward(alpha, log_x)
+        return log_x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        alpha, log_x = ctx.saved_tensors
+        x = torch.exp(log_x).clamp_min(_TINY)
+        return grad * torch._standard_gamma_grad(alpha, x) / x, None
+
+
+def reparam_log_gamma(alpha: torch.Tensor, log_x: torch.Tensor) -> torch.Tensor:
+    """``log_x`` (log-gamma variates of shape ``alpha``, no gradient) carrying
+    the implicit reparameterisation gradient in ``alpha``."""
+    return _LogGammaReparam.apply(alpha, log_x.detach())
+
+
+def draw_log_gamma(alpha: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """log Ga(alpha, 1) variates from ``gen`` on ``alpha``'s device, no
+    gradient: shapes below 1 are boosted by one and scaled by U^(1/alpha), in
+    log space, as ``jax.random.loggamma`` does."""
+    alpha = alpha.detach()
+    boost = alpha < 1.0
+    g = torch._standard_gamma(torch.where(boost, alpha + 1.0, alpha), generator=gen)
+    log_u = torch.log1p(-torch.rand(alpha.shape, generator=gen, device=alpha.device))
+    return torch.log(g) + torch.where(boost, log_u / alpha, 0.0)
+
+
+def _algdiv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """ln(gamma(b) / gamma(a + b)) for b >= 8 and a <= b (the JAX package's
+    ``algdiv``, after scipy's cdflib)."""
+    c0, c1, c2 = 0.833333333333333e-01, -0.277777777760991e-02, 0.793650666825390e-03
+    c3, c4, c5 = -0.595202931351870e-03, 0.837308034031215e-03, -0.165322962780713e-02
+    h = a / b
+    c = h / (1 + h)
+    x = h / (1 + h)
+    d = b + (a - 0.5)
+    x2 = x * x
+    s3 = 1.0 + (x + x2)
+    s5 = 1.0 + (x + x2 * s3)
+    s7 = 1.0 + (x + x2 * s5)
+    s9 = 1.0 + (x + x2 * s7)
+    s11 = 1.0 + (x + x2 * s9)
+    t = (1.0 / b) ** 2
+    w = ((((c5 * s11 * t + c4 * s9) * t + c3 * s7) * t + c2 * s5) * t + c1 * s3) * t + c0
+    w = w * (c / b)
+    u = d * torch.log1p(a / b)
+    v = a * (torch.log(b) - 1.0)
+    return torch.where(u <= v, (w - v) - u, (w - u) - v)
+
+
+def betaln(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """log B(a, b) as ``jax.scipy.special.betaln``: lgamma sums below 8,
+    ``_algdiv`` above."""
+    a, b = torch.minimum(a, b), torch.maximum(a, b)
+    small_b = torch.lgamma(a) + (torch.lgamma(b) - torch.lgamma(a + b))
+    large_b = torch.lgamma(a) + _algdiv(a, b)
+    return torch.where(b < 8, small_b, large_b)
+
+
+@dataclass
+class Beta:
+    a: torch.Tensor  # concentration1 (alpha)
+    b: torch.Tensor  # concentration0 (beta)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.xlogy(self.a - 1.0, x) + torch.xlogy(self.b - 1.0, 1.0 - x) - betaln(self.a, self.b)
+
+    def sample(self, log_gamma_a: torch.Tensor, log_gamma_b: torch.Tensor) -> torch.Tensor:
+        """The draw of ``jax.random.beta`` from the log-gamma variates of ``a``
+        and ``b`` (no gradient; the implicit one is attached here):
+        G_a / (G_a + G_b) computed from the logs without overflow."""
+        la = reparam_log_gamma(self.a, log_gamma_a)
+        lb = reparam_log_gamma(self.b, log_gamma_b)
+        log_max = torch.maximum(la, lb)
+        ga, gb = torch.exp(la - log_max), torch.exp(lb - log_max)
+        return ga / (ga + gb)
+
+    def mean(self) -> torch.Tensor:
+        return self.a / (self.a + self.b)
+
+
+def kl_beta_beta(p: Beta, q: Beta) -> torch.Tensor:
+    """KL(Beta(a0, b0) || Beta(a1, b1)), elementwise (distributions.py:165-175)."""
+    total_p = p.a + p.b
+    return (betaln(q.a, q.b) - betaln(p.a, p.b) + (p.a - q.a) * torch.digamma(p.a)
+            + (p.b - q.b) * torch.digamma(p.b) + (q.a - p.a + q.b - p.b) * torch.digamma(total_p))

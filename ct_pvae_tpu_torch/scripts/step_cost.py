@@ -13,8 +13,14 @@ cheap init stack, then measures, on the card:
          (``cuda_time``), in turns with A's and B's first designs
          (``csrc/joseph_fwd.cu``, ``csrc/joseph_adj.cu``) swapped in on the
          same angles (``route_in_turns``)
-  eval   ``Server.eval_step`` at batch 10 over all 180 angles
-  train  ``Trainer.train_step`` at batch 10, 20 angles, 2 ELBO samples
+  eval   ``Server.eval_step`` at batch 10 over all 180 angles, drawing
+         inside the step from a generator as ``amortized_infer`` does
+  train  ``Trainer.train_step`` at batch 10, 20 angles, 2 ELBO samples, as
+         ``Trainer.train`` runs its eager steps: host indices, the step's
+         own draws
+  train_graphed  the same step as replays of its CUDA graph: ``train_chunk``
+         of ``steps_per_call`` (8) steps a call, every number per step
+         (where the tree has it)
   setup  the set-up of ``cli infer`` without ``--cheap_init`` on the first
          100 sinograms (masks, Poisson draws, the sirt/tv/fbp/gridrec init
          stack on kernels C and D, restore): ``amortized_infer``'s
@@ -244,25 +250,45 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         weight = torch.rand((sb, cfg.angles_per_iter, tr.n_det), device=dev)
         route_fn = lambda: tr.project(recon, aidx).backward(weight)
         route = route_in_turns(route_fn, route_fn, joseph_radon, _cuda)
-        draws = tr.sampler("eval", 0, shapes, out_shape, cfg.num_samples)
-        steps = {
-            "eval_step": lambda: tr.eval_step(bidx, draws),
-            "train_step": lambda: tr.train_step(bidx, aidx, tr.sampler(
-                "train", tr.step, shapes, out_shape, cfg.num_samples)),
-        }
+        b_host, a_host = bidx.cpu().numpy(), aidx.cpu().numpy()
+        # name: (call, steps a call)
+        if hasattr(tr, "train_chunk"):
+            # the steps as the loops run them: the eval step drawing from a
+            # generator (amortized_infer's TorchSampler), the train step from
+            # its own, with host indices
+            from ct_pvae_tpu_torch.vi.infer import TorchSampler
+
+            draws = TorchSampler(0, dev)(0, 0, shapes, out_shape, cfg.num_samples)
+            k = cfg.steps_per_call
+            steps = {
+                "eval_step": (lambda: tr.eval_step(bidx, draws), 1),
+                "train_step": (lambda: tr.train_step(b_host, a_host), 1),
+                "train_graphed": (lambda: tr.train_chunk([b_host] * k, [a_host] * k), k),
+            }
+        else:  # a tree before the graphed step: Draws made before each step
+            draws = tr.sampler("eval", 0, shapes, out_shape, cfg.num_samples)
+            steps = {
+                "eval_step": (lambda: tr.eval_step(bidx, draws), 1),
+                "train_step": (lambda: tr.train_step(bidx, aidx, tr.sampler(
+                    "train", tr.step, shapes, out_shape, cfg.num_samples)), 1),
+            }
         results = {}
-        for name, step in steps.items():
-            wall, busy = _wall_and_busy(step, args.steps)
+        for name, (step, k) in steps.items():
+            wall, busy = _wall_and_busy(step, max(1, args.steps // k))
             dev_ms, host_us, covered = cuda_time(step, 5)
-            results[name] = {"wall_ms": wall, "busy_ms": busy, "device_ms": dev_ms,
-                             "host_ms": host_us / 1e3, "covered": covered}
-        turns = {"own": {name: [] for name in steps}, "first_designs": {name: [] for name in steps}}
+            results[name] = {"wall_ms": wall / k, "busy_ms": busy / k, "device_ms": dev_ms / k,
+                             "host_ms": host_us / 1e3 / k, "covered": covered}
+        # a captured graph keeps the kernels it captured: the first designs
+        # swap into the eager steps only
+        swappable = [name for name in steps if name != "train_graphed"]
+        turns = {"own": {name: [] for name in steps}, "first_designs": {name: [] for name in swappable}}
         for _ in range(3):
             for projector, walls in turns.items():
                 restore = (_swap_in_first_designs(joseph_radon, _cuda) if projector == "first_designs"
                            else lambda: None)
-                for name, step in steps.items():
-                    walls[name].append(_wall(step, args.steps))
+                for name in walls:
+                    step, k = steps[name]
+                    walls[name].append(_wall(step, max(1, args.steps // k)) / k)
                 restore()
     print(json.dumps({
         "tree": os.path.abspath(args.tree), "package": os.path.dirname(ct_pvae_tpu_torch.__file__),

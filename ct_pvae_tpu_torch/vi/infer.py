@@ -22,7 +22,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,23 +30,25 @@ import torch
 from ..config import Config
 from ..data import io as data_io
 from ..device import DeviceLike, exact_f32, resolve_device
-from .loss import Draws, standard_draws
+from .loss import DrawSource, Draws, GeneratorDraws
 from .serve import Server
 
-# sampler(batch_index, pass_index, latent_shapes, output_shape, num_samples) -> Draws
-Sampler = Callable[[int, int, List[Tuple[int, ...]], Tuple[int, ...], int], Draws]
+# sampler(batch_index, pass_index, latent_shapes, output_shape, num_samples)
+#   -> Draws or a draw source
+Sampler = Callable[[int, int, List[Tuple[int, ...]], Tuple[int, ...], int], Union[Draws, DrawSource]]
 
 
 class TorchSampler:
-    """Default draws: standard normals and uniforms from a seeded
-    ``torch.Generator`` on the device."""
+    """Default draws: a seeded ``torch.Generator`` on the device as each
+    step's draw source, drawing inside the step (latent normals, output
+    uniforms, Beta's log-gamma variates)."""
 
     def __init__(self, seed: int, device: torch.device):
         self.device = device
         self.gen = torch.Generator(device=device).manual_seed(seed)
 
-    def __call__(self, batch_index, pass_index, latent_shapes, out_shape, num_samples) -> Draws:
-        return standard_draws(self.gen, latent_shapes, out_shape, num_samples, self.device)
+    def __call__(self, batch_index, pass_index, latent_shapes, out_shape, num_samples):
+        return GeneratorDraws(self.gen, self.device)
 
 
 def amortized_infer(

@@ -2,10 +2,14 @@
 
 ``Server`` does the Trainer's setup (train.py:77-210): recon sizes, masks
 and measurements, the classical-init stack, the pnm anneal factor and the
-models built from the run's config; ``restore`` reads ``params``,
-``kl_anneal``, ``pnm`` and ``step`` from a flax msgpack checkpoint with the
-same "latest" rule (train.py:655-690); ``eval_step`` is the eval branch of
-the step (train.py:233-402, ``training=False``) over all angles.
+models built from the run's config (Normal or Beta latents and output,
+deterministic mode, the model options); ``restore`` reads ``params`` (with
+``log_pnm`` under ``train_pnm``), ``kl_anneal``, ``pnm`` and ``step`` from a
+flax msgpack checkpoint with the same "latest" rule (train.py:655-690);
+``eval_step`` is the eval branch of the step (train.py:233-402,
+``training=False``) over all angles.  The Poisson multiplier reaches the
+likelihood as a device tensor, ``pnm_base() * anneal_power(step)``: the
+pnm, or exp(log_pnm) under ``train_pnm``, times factor^min(step, num_iter).
 ``vi/train.py`` ``Trainer`` extends it with the train step, Adam and the loop.
 
 The projector is routed as the JAX Trainer routes it (train.py:249-256):
@@ -21,7 +25,7 @@ subset (loss.py:70-71), another discretisation.
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,7 +37,7 @@ from ..models.pvae import build_models, params_from_flax
 from ..ops.joseph_radon import angle_table_fused, kernel_rows, radon_fused
 from ..ops.radon import pad_phantom, radon
 from ..utils.flax_msgpack import load_checkpoint
-from .loss import Draws, ElboAux, elbo_loss
+from .loss import Draws, DrawSource, ElboAux, elbo_loss
 
 
 def latest_checkpoint(run_path: str, ckpt_num: Optional[int] = None) -> str:
@@ -64,8 +68,6 @@ class Server:
 
     def __init__(self, cfg: Config, sinograms: np.ndarray, theta: np.ndarray, device: torch.device,
                  kernel_route: bool = False):
-        if not cfg.use_normal or cfg.deterministic:
-            raise NotImplementedError("the port serves Normal (non-deterministic) latents only")
         self.cfg, self.device = cfg, device
         sinograms = np.clip(np.asarray(sinograms, np.float32)[: cfg.truncate_dataset], 0, None)
         self.theta = np.asarray(theta, np.float32)
@@ -115,6 +117,11 @@ class Server:
             self.pnm_anneal_factor = 1.0
             pnm0 = cfg.poisson_noise_multiplier
         self.kl_anneal, self.pnm, self.step = 1.0, float(np.float32(pnm0)), 0
+        f32 = dict(dtype=torch.float32, device=device)
+        self.pnm_t = torch.tensor(self.pnm, **f32)  # updated in place on restore
+        # --train_pnm: log pnm is a trainable leaf of the params (train.py:174-177)
+        self.log_pnm = (torch.nn.Parameter(torch.log(torch.tensor(np.float32(pnm0), **f32)))
+                        if cfg.train_pnm else None)
 
         self.encoder, self.decoder, self.skip_shapes = build_models(
             self.x_size, self.y_size, stack.shape[-1], cfg
@@ -146,18 +153,29 @@ class Server:
         """Params and anneal state from a decoded flax ``TrainState``."""
         self.encoder.load_state_dict(params_from_flax(ckpt["params"]["encoder"]))
         self.decoder.load_state_dict(params_from_flax(ckpt["params"]["decoder"]))
+        if self.log_pnm is not None:
+            with torch.no_grad():
+                self.log_pnm.copy_(torch.tensor(np.asarray(ckpt["params"]["log_pnm"], np.float32)))
         self.kl_anneal = float(ckpt["kl_anneal"])
         self.pnm = float(ckpt["pnm"])
+        self.pnm_t.fill_(self.pnm)
         self.step = int(ckpt["step"])
 
-    def annealed_pnm(self) -> torch.Tensor:
-        """pnm * factor^min(step, num_iter) in float32, as train.py:341-353; a
-        0-d CPU tensor, which device ops take as a scalar without a copy."""
+    def anneal_power(self, step: int) -> float:
+        """factor^min(step, num_iter) in float32 (train.py:341-346), as a float."""
         f32 = dict(dtype=torch.float32)
-        power = torch.tensor(self.pnm_anneal_factor, **f32) ** torch.tensor(
-            float(min(self.step, self.cfg.num_iter)), **f32
-        )
-        return torch.tensor(self.pnm, **f32) * power
+        return float(torch.tensor(self.pnm_anneal_factor, **f32)
+                     ** torch.tensor(float(min(step, self.cfg.num_iter)), **f32))
+
+    def pnm_base(self) -> torch.Tensor:
+        """The 0-d device pnm the anneal scales: exp(log_pnm) under
+        ``train_pnm`` (differentiable), else the state's pnm."""
+        return torch.exp(self.log_pnm) if self.log_pnm is not None else self.pnm_t
+
+    def annealed_pnm(self) -> torch.Tensor:
+        """pnm * factor^min(step, num_iter) in float32, as train.py:341-353,
+        at the current step: a 0-d device tensor."""
+        return self.pnm_base() * torch.tensor(self.anneal_power(self.step), dtype=torch.float32)
 
     def project(self, recon: torch.Tensor, angles_i: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, x, y) -> (B, A_sub, n_det) over the angles ``angles_i`` (all
@@ -176,7 +194,8 @@ class Server:
         return eps, (batch, self.x_size, self.y_size, 1)
 
     @torch.no_grad()
-    def eval_step(self, batch_idx: torch.Tensor, draws: Draws) -> Tuple[torch.Tensor, ElboAux]:
+    def eval_step(self, batch_idx: torch.Tensor, draws: Union[Draws, DrawSource]
+                  ) -> Tuple[torch.Tensor, ElboAux]:
         """Eval-mode ELBO of the examples ``batch_idx`` (all angles)."""
         cfg = self.cfg
         batch = {k: v.index_select(0, batch_idx) for k, v in self.data.items()}
@@ -188,6 +207,9 @@ class Server:
             kl_multiplier=cfg.kl_multiplier,
             pnm=self.annealed_pnm(),
             num_blocks=cfg.num_blocks,
+            num_samples=cfg.num_samples,
+            use_normal=cfg.use_normal,
+            deterministic=cfg.deterministic,
             input_encode_scale=cfg.input_encode_scale,
             loss_scale=cfg.loss_scale,
         )

@@ -4,45 +4,56 @@
 init stack, anneal factor, models, projector table) with what training
 adds (train.py:76-690):
 
-  * parameters drawn from a seed with flax's initialisers (``init_params``);
+  * parameters drawn from a seed with flax's initialisers (``init_params``),
+    plus ``log_pnm`` under ``train_pnm`` (train.py:174-177);
   * the step: kl anneal ``clip(kl * factor, 0, 100)``, pnm annealed as
-    ``pnm * factor**min(step, num_iter)`` in float32, the ELBO over the
-    step's angle subset on the routed projector (``Server``: kernel A
-    forward and kernel B backward, or the gather projector), then the
-    optimiser ``nan_zero_and_clip`` + Adam;
+    ``pnm * factor**min(step, num_iter)`` in float32 (``exp(log_pnm)`` for
+    pnm under ``train_pnm``), the ELBO over the step's angle subset on the
+    routed projector (``Server``: kernel A forward and kernel B backward, or
+    the gather projector), then the optimiser ``nan_zero_and_clip`` + Adam;
   * the loop: ``IndexStream`` batch and angle streams (seeds seed+1 and
-    seed+2), metrics flushed every ``metrics_every`` steps, the NaN-loss
-    stop, ``setup_time.npy`` / ``training_time.npy``, checkpoints at
-    ``save_interval`` and at the last step, and the ``resume_total`` replay;
+    seed+2), chunks of ``steps_per_call`` steps cut at ``save_interval``
+    boundaries as the JAX loop cuts its ``lax.scan`` calls (train.py:465-553),
+    metrics flushed every ``metrics_every`` steps, the NaN-loss stop,
+    ``setup_time.npy`` / ``training_time.npy``, checkpoints at
+    ``save_interval`` and at the last step, the ``resume_total`` replay, and
+    a ``torch.profiler`` trace of steps [2, 2 + ``profile_steps``) into
+    ``<save_path>/profile`` (1-step chunks, as train.py:466, 488-495);
   * ``final_evaluation`` (the unshuffled eval pass) and flax-msgpack
     ``TrainState`` checkpoints the JAX package reads back.
+
+A step reads its inputs from slot buffers on the device (``_slot_ints``:
+batch, angle and roll indices; ``_slot_floats``: the kl anneal, the pnm
+anneal power and Adam's bias corrections), which the host fills before it
+runs.  On the card a full chunk replays a CUDA graph of the whole step
+(``vi/step_graph.py``) once per step; partial chunks, ``steps_per_call: 1``
+and the CPU run the same step body eagerly on the same buffers, so every
+route does the same arithmetic.  A failed capture raises: there is no eager
+fallback on the card.
 
 The optimiser works per flax leaf.  A port ``ConvBlock`` holds both maxout
 branches in one tensor, where flax has two leaves (``Conv_0``, ``Conv_1``),
 so the per-tensor clip takes the norm of each branch half of each weight and
-bias separately.  Adam follows optax's arithmetic (moments, bias
-correction, ``m / (sqrt(v) + eps)``) op for op in float32.
+bias separately (``flax_leaves``).  Adam follows optax's arithmetic
+(moments, bias correction, ``m / (sqrt(v) + eps)``) op for op in float32.
 
-Random draws come from ``sampler(kind, index, ...)``: by default a
-``torch.Generator`` seeded from (seed, kind, absolute step or eval batch),
-so a resumed run replays the draws of an uninterrupted one, as
-``fold_in(key, step)`` does in the JAX package; tests pass the JAX draws.
+Random draws come from the trainer's generator, re-seeded from (seed,
+absolute step) before each step, so a resumed run replays the draws of an
+uninterrupted one, as ``fold_in(key, step)`` does in the JAX package, and a
+graphed step draws what the eager one draws.  Tests pass a ``sampler(kind,
+index, ...)`` whose ``Draws`` replace them (on the card such a run takes
+the eager step).  With ``roll_augment`` the step rolls its batch
+(``vi/augment.py``) by indices drawn on the host from a generator seeded
+from (seed, step), as the JAX step splits a roll key from its step key.
 
-With ``roll_augment`` the train step rolls its batch (``vi/augment.py``)
-by indices drawn from a generator seeded from (seed, step), as the JAX step
-splits a roll key from its step key.
-
-Not ported (each raises): ``train_pnm``, meshes, multi-host and streamed
-batches, profiling.  ``steps_per_call`` (the
-``lax.scan`` fusion of several steps) is ignored: it does not change the
-numerics, and a CUDA graph is its GPU counterpart.
+Not ported (each raises): meshes, multi-host and streamed batches.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,13 +61,15 @@ import torch
 from ..config import Config
 from ..data import io as data_io
 from ..device import DeviceLike, resolve_device
-from ..models.pvae import branch_halves, init_params, params_to_flax, params_from_flax
+from ..models.pvae import flax_leaves, init_params, params_to_flax, params_from_flax
+from ..ops import joseph_radon, radon
 from ..utils.batching import IndexStream
 from ..utils.flax_msgpack import load_checkpoint, save_checkpoint
 from ..utils.metrics import MetricsLogger
 from .augment import roll_batch
-from .loss import Draws, elbo_loss, standard_draws
+from .loss import Draws, DrawSource, GeneratorDraws, elbo_loss, standard_draws
 from .serve import Server, latest_checkpoint
+from .step_graph import StepGraph
 
 # sampler(kind "train" | "eval", step or eval batch, latent_shapes, output_shape, num_samples)
 Sampler = Callable[[str, int, List[Tuple[int, ...]], Tuple[int, ...], int], Draws]
@@ -64,18 +77,28 @@ Sampler = Callable[[str, int, List[Tuple[int, ...]], Tuple[int, ...], int], Draw
 ADAM_B1, ADAM_B2 = 0.9, 0.999  # optax.adam defaults
 
 
+def draw_seed(seed: int, kind: str, index: int) -> int:
+    """The generator seed of (run seed, "train" | "eval", absolute step or
+    eval batch): restart-invariant."""
+    entropy = [seed, ("train", "eval").index(kind), index]
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]) >> 1
+
+
 class SeededSampler:
     """Standard normals and uniforms on the device from a fresh generator per
-    (kind, index), seeded from ``seed``: restart-invariant draws."""
+    (kind, index), seeded with ``draw_seed``: restart-invariant ``Draws``
+    (the Normal latents' explicit draws, which a caller can move to another
+    device)."""
 
     def __init__(self, seed: int, device: torch.device):
         self.seed, self.device = seed, device
 
+    def generator(self, kind: str, index: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(draw_seed(self.seed, kind, index))
+
     def __call__(self, kind, index, latent_shapes, out_shape, num_samples) -> Draws:
-        entropy = [self.seed, ("train", "eval").index(kind), index]
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]) >> 1)
-        return standard_draws(gen, latent_shapes, out_shape, num_samples, self.device)
+        return standard_draws(self.generator(kind, index), latent_shapes, out_shape, num_samples,
+                              self.device)
 
 
 def nan_zero_and_clip_(grad: torch.Tensor, leaves: Tuple[torch.Tensor, ...], norm: float) -> None:
@@ -93,10 +116,14 @@ def adam_bias_corrections(count: int) -> Tuple[float, float]:
     return (1 - torch.tensor(ADAM_B1) ** n).item(), (1 - torch.tensor(ADAM_B2) ** n).item()
 
 
+Scalar = Union[float, torch.Tensor]
+
+
 def adam_(param: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
-          corrections: Tuple[float, float], lr: float, eps: float) -> None:
+          corrections: Tuple[Scalar, Scalar], lr: float, eps: float) -> None:
     """optax.adam's update of one tensor, in place, in optax's op order:
-    mu, nu as (1 - b) * g + b * m, then m_hat / (sqrt(v_hat) + eps) * -lr."""
+    mu, nu as (1 - b) * g + b * m, then m_hat / (sqrt(v_hat) + eps) * -lr.
+    The bias corrections are floats or 0-d tensors on ``param``'s device."""
     mu.copy_((1 - ADAM_B1) * grad + ADAM_B1 * mu)
     nu.copy_((1 - ADAM_B2) * (grad * grad) + ADAM_B2 * nu)
     bc1, bc2 = corrections
@@ -104,13 +131,21 @@ def adam_(param: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor, nu: torch.T
 
 
 class _Slot(NamedTuple):
-    """One torch parameter with its block (for the flax-leaf split) and Adam moments."""
+    """One torch parameter with its block (for the flax-leaf split; None for
+    ``log_pnm``) and Adam moments."""
 
     param: torch.Tensor
-    block: torch.nn.Module
-    kind: str  # "weight" | "bias"
+    block: Optional[torch.nn.Module]
+    kind: str  # "weight" | "bias" | "norm_scale" | "norm_offset" | "log_pnm"
     mu: torch.Tensor
     nu: torch.Tensor
+
+    def leaves(self, tensor: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return (tensor,) if self.block is None else flax_leaves(self.block, self.kind, tensor)
+
+
+# the float slot: kl anneal, pnm anneal power, Adam's two bias corrections
+KL, POWER, BC1, BC2 = range(4)
 
 
 class Trainer(Server):
@@ -127,11 +162,9 @@ class Trainer(Server):
     ):
         self.setup_start_time = time.time()
         not_ported = {
-            "train_pnm": cfg.train_pnm,
             "mesh_data/mesh_angle > 1": cfg.mesh_data * cfg.mesh_angle > 1,
             "multihost": cfg.multihost,
             "stream_batches": cfg.stream_batches,
-            "profile_steps": cfg.profile_steps > 0,
         }
         for name, on in not_ported.items():
             if on:
@@ -158,73 +191,173 @@ class Trainer(Server):
                 _, i, kind = name.split(".")
                 self.slots.append(_Slot(p, model.blocks[int(i)], kind, torch.zeros_like(p),
                                         torch.zeros_like(p)))
-        self.sampler = sampler if sampler is not None else SeededSampler(cfg.seed, dev)
+        if self.log_pnm is not None:  # the third flax leaf of the params, after the models
+            self.slots.append(_Slot(self.log_pnm, None, "log_pnm", torch.zeros_like(self.log_pnm),
+                                    torch.zeros_like(self.log_pnm)))
+        self.seeded = SeededSampler(cfg.seed, dev)
+        # a sampler's Draws replace the trainer's own draws (the parity tests')
+        self.replay_draws = sampler is not None
+        self.sampler = sampler if sampler is not None else self.seeded
+        self.angles_per_step = min(cfg.angles_per_iter, self.num_angles)
+        width = 2 * cfg.batch_size + self.angles_per_step if cfg.roll_augment else \
+            cfg.batch_size + self.angles_per_step
+        self._slot_ints = torch.zeros(width, dtype=torch.long, device=dev)
+        self._slot_floats = torch.zeros(4, dtype=torch.float32, device=dev)
+        self._gen = torch.Generator(device=dev)  # re-seeded before every step
+        self._graph: Optional[StepGraph] = None
         self.metrics = MetricsLogger(cfg.save_path)
         if cfg.restore and cfg.save_path:
             self.restore_state(cfg.restore_num, cfg.use_latest_ckpt)
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def _adam_update(self, grads) -> None:
-        """nan_zero_and_clip, then optax.adam's update, in place."""
-        cfg = self.cfg
-        self.adam_count += 1
-        corrections = adam_bias_corrections(self.adam_count)
-        for slot, g in zip(self.slots, grads):
-            nan_zero_and_clip_(g, branch_halves(slot.block, slot.kind, g), cfg.norm)
-            adam_(slot.param, g, slot.mu, slot.nu, corrections, cfg.learning_rate, cfg.adam_epsilon)
-
     def roll_indices(self, step: int) -> torch.Tensor:
         """The roll augmentation's (B,) indices of step ``step``, in [0, A),
         from a generator seeded from (seed, step): restart-invariant."""
+        return self._roll_host(step).to(self.device)
+
+    def _roll_host(self, step: int) -> torch.Tensor:
         gen = torch.Generator().manual_seed(
             int(np.random.SeedSequence([self.cfg.seed, 2, step]).generate_state(1, np.uint64)[0]) >> 1)
-        k = torch.randint(0, self.num_angles, (self.cfg.batch_size,), generator=gen)
-        return k.to(self.device)
+        return torch.randint(0, self.num_angles, (self.cfg.batch_size,), generator=gen)
 
-    def loss_and_grads(self, batch_idx: torch.Tensor, angle_idx: torch.Tensor, draws: Draws,
-                       roll_k: Optional[torch.Tensor] = None):
-        """The step's (loss, aux, grads) at the current state, kl anneal
-        already advanced; the gradients are those of ``jax.value_and_grad``.
-        ``roll_k``: roll the batch by these indices first (``roll_batch``)."""
+    def _step_ints(self, step: int, batch_idx, angle_idx) -> torch.Tensor:
+        """The int slot of step ``step`` on the host: batch indices, angle
+        indices, then the roll indices under ``roll_augment``."""
+        parts = [batch_idx, angle_idx] + ([self._roll_host(step)] if self.cfg.roll_augment else [])
+        return torch.cat([torch.as_tensor(p).to("cpu", torch.long) for p in parts])
+
+    def _stage(self, k: int) -> Tuple[torch.Tensor, float]:
+        """The float slots of the next ``k`` steps from the host state, (k, 4)
+        float32 on the CPU, and the kl anneal after the last.  Changes no state."""
+        kl, floats = self.kl_anneal, []
+        for j in range(k):
+            kl = float(np.clip(np.float32(kl) * np.float32(self.cfg.kl_anneal_factor), 0.0, 100.0))
+            floats.append([kl, self.anneal_power(self.step + j),
+                           *adam_bias_corrections(self.adam_count + j + 1)])
+        return torch.tensor(floats, dtype=torch.float32), kl
+
+    def _advance(self, k: int, kl: float) -> None:
+        self.kl_anneal, self.step, self.adam_count = kl, self.step + k, self.adam_count + k
+
+    def _fill_slots(self, ints: torch.Tensor, floats: torch.Tensor) -> None:
+        self._slot_ints.copy_(ints, non_blocking=True)
+        self._slot_floats.copy_(floats, non_blocking=True)
+
+    def _prepare(self, batch_idx, angle_idx, draws) -> float:
+        """Fill the slots with the next step's inputs and seed its generator
+        (unless ``draws`` replace it); returns the kl anneal after the step."""
+        floats, kl = self._stage(1)
+        self._fill_slots(self._step_ints(self.step, batch_idx, angle_idx), floats[0])
+        if draws is None:
+            self._seed(self.step)
+        return kl
+
+    def _slot_grads(self, draws: Optional[Union[Draws, DrawSource]] = None):
+        """(loss, aux, grads) of the step in the slot buffers, drawing from the
+        trainer's generator unless ``draws`` are given."""
         cfg = self.cfg
-        batch = {k: v.index_select(0, batch_idx) for k, v in self.data.items()}
-        if roll_k is not None:
-            batch = roll_batch(batch, self.theta_t, roll_k)
+        b, n = cfg.batch_size, self.angles_per_step
+        ints, floats = self._slot_ints, self._slot_floats
+        batch = {k: v.index_select(0, ints[:b]) for k, v in self.data.items()}
+        if cfg.roll_augment:
+            batch = roll_batch(batch, self.theta_t, ints[b + n:])
         loss, aux = elbo_loss(
             self.encoder, self.decoder,
-            batch["input_encode"], batch["mask"], batch["proj_sample"], draws,
+            batch["input_encode"], batch["mask"], batch["proj_sample"],
+            GeneratorDraws(self._gen, self.device) if draws is None else draws,
             project_fn=self.project,
-            angles_i=angle_idx,
-            kl_anneal=self.kl_anneal,
+            angles_i=ints[b:b + n],
+            kl_anneal=floats[KL],
             kl_multiplier=cfg.kl_multiplier,
-            pnm=self.annealed_pnm(),
+            pnm=self.pnm_base() * floats[POWER],
             num_blocks=cfg.num_blocks,
+            num_samples=cfg.num_samples,
+            use_normal=cfg.use_normal,
+            deterministic=cfg.deterministic,
             input_encode_scale=cfg.input_encode_scale,
             loss_scale=cfg.loss_scale,
             training=True,
         )
-        grads = torch.autograd.grad(loss, [slot.param for slot in self.slots])
-        return loss, aux, grads
+        return loss, aux, torch.autograd.grad(loss, [slot.param for slot in self.slots])
 
-    def train_step(self, batch_idx: torch.Tensor, angle_idx: torch.Tensor, draws: Draws) -> torch.Tensor:
-        """One step; returns the device row (loss, mean kl, loglik, kl_anneal)."""
-        self.kl_anneal = float(np.clip(np.float32(self.kl_anneal) * np.float32(self.cfg.kl_anneal_factor),
-                                       0.0, 100.0))
-        roll_k = self.roll_indices(self.step) if self.cfg.roll_augment else None
-        loss, aux, grads = self.loss_and_grads(batch_idx, angle_idx, draws, roll_k)
-        self._adam_update(grads)
-        self.step += 1
-        return torch.stack([loss.detach(), aux.kl.detach().mean(), aux.loglik.detach(),
-                            loss.new_full((), self.kl_anneal)])
+    def _slot_step(self, draws: Optional[Union[Draws, DrawSource]] = None) -> torch.Tensor:
+        """One train step from the slot buffers, device work only (what the
+        graph captures): the loss, its gradients, nan_zero_and_clip and Adam
+        in place.  Returns the device row (loss, mean kl, loglik, kl_anneal)."""
+        loss, aux, grads = self._slot_grads(draws)
+        floats = self._slot_floats
+        with torch.no_grad():
+            for slot, g in zip(self.slots, grads):
+                nan_zero_and_clip_(g, slot.leaves(g), self.cfg.norm)
+                adam_(slot.param, g, slot.mu, slot.nu, (floats[BC1], floats[BC2]),
+                      self.cfg.learning_rate, self.cfg.adam_epsilon)
+        return torch.stack([loss.detach(), aux.kl.detach().mean(), aux.loglik.detach(), floats[KL]])
+
+    def _seed(self, step: int) -> None:
+        self._gen.manual_seed(draw_seed(self.cfg.seed, "train", step))
+
+    def loss_and_grads(self, batch_idx, angle_idx, draws: Optional[Union[Draws, DrawSource]] = None):
+        """The next step's (loss, aux, grads) at the current state, without
+        the update; the gradients are those of ``jax.value_and_grad``.
+        ``draws``: the step's draws (default: the trainer's generator, as the
+        step draws them)."""
+        self._prepare(batch_idx, angle_idx, draws)
+        return self._slot_grads(draws)
+
+    def train_step(self, batch_idx, angle_idx, draws: Optional[Union[Draws, DrawSource]] = None
+                   ) -> torch.Tensor:
+        """One eager step; returns the device row (loss, mean kl, loglik, kl_anneal)."""
+        kl = self._prepare(batch_idx, angle_idx, draws)
+        row = self._slot_step(draws)
+        self._advance(1, kl)
+        return row
+
+    def capture_step(self) -> StepGraph:
+        """The CUDA graph of the train step, captured on first use (its
+        warm-up leaves the state as it was)."""
+        if self.device.type != "cuda":
+            raise RuntimeError("CUDA graphs need a CUDA device; the CPU runs the step eagerly")
+        if self._graph is None:
+            state = [t for slot in self.slots for t in (slot.param, slot.mu, slot.nu)]
+            graph = StepGraph(self._slot_step, state, self._gen,
+                              [joseph_radon.LAUNCHES, radon.CALLS])
+            graph.capture(draw_seed(self.cfg.seed, "train", self.step))
+            self._graph = graph
+        return self._graph
+
+    def train_chunk(self, batch_idxs: Sequence, angle_idxs: Sequence,
+                    draws: Optional[Sequence[Draws]] = None) -> torch.Tensor:
+        """``len(batch_idxs)`` steps, the slots staged for all of them at
+        once: on the card each a replay of the captured step (the JAX
+        package's ``lax.scan`` over K steps), on the CPU the same step run
+        eagerly.  ``draws``: per-step Draws replacing the trainer's (CPU
+        only).  Returns the (K, 4) device rows."""
+        k = len(batch_idxs)
+        floats, kl = self._stage(k)
+        ints = torch.stack([self._step_ints(self.step + j, b, a)
+                            for j, (b, a) in enumerate(zip(batch_idxs, angle_idxs))])
+        graphed = self.device.type == "cuda"
+        if graphed:
+            if draws is not None:
+                raise ValueError("the graphed step draws from its own generator; "
+                                 "replayed Draws need steps_per_call 1")
+            graph = self.capture_step()
+            ints = ints.pin_memory().to(self.device, non_blocking=True)
+            floats = floats.pin_memory().to(self.device, non_blocking=True)
+        rows = []
+        for j in range(k):
+            self._fill_slots(ints[j], floats[j])
+            if draws is None:
+                self._seed(self.step + j)
+            rows.append((graph.replay() if graphed else self._slot_step(draws and draws[j])).clone())
+        self._advance(k, kl)
+        return torch.stack(rows)
 
     # ------------------------------------------------------------------
     def train(self) -> None:
         cfg = self.cfg
-        dev = self.device
         batch_stream = IndexStream(self.num_examples, cfg.batch_size, cfg.seed + 1)
-        angle_stream = IndexStream(self.num_angles, min(cfg.angles_per_iter, self.num_angles),
-                                   cfg.seed + 2)
+        angle_stream = IndexStream(self.num_angles, self.angles_per_step, cfg.seed + 2)
         start_step = self.step
         if start_step:  # replay the streams an uninterrupted run would have consumed
             batch_stream.skip(start_step)
@@ -232,24 +365,59 @@ class Trainer(Server):
         target_iters = max(cfg.num_iter - start_step if cfg.resume_total else cfg.num_iter, 0)
         flush_every = max(1, cfg.metrics_every)
         latent_shapes, out_shape = self.draw_shapes(cfg.batch_size)
+        spc = max(1, int(cfg.steps_per_call))
+        # profiling traces single steps (train.py:466)
+        use_chunks = spc > 1 and not cfg.profile_steps
+        if use_chunks and self.replay_draws and self.device.type == "cuda":
+            raise ValueError("a sampler's Draws run on the eager step: set steps_per_call 1")
+        if use_chunks and cfg.save_path and cfg.save_interval <= spc:
+            print(f"warning: save_interval={cfg.save_interval} <= steps_per_call={spc} forces "
+                  "1-step chunks and disables the graphed step; raise save_interval to fuse")
+        si = max(1, cfg.save_interval)
         rows: List[torch.Tensor] = []
+        buf_rows = 0
         setup_time_saved = False
+        profiler = None
         start_time = time.time()
-        for it in range(target_iters):
-            bidx = torch.as_tensor(batch_stream.next(), device=dev)
-            aidx = torch.as_tensor(angle_stream.next(), device=dev)
-            draws = self.sampler("train", self.step, latent_shapes, out_shape, cfg.num_samples)
-            rows.append(self.train_step(bidx, aidx, draws))
+        it = 0
+        while it < target_iters:
+            if cfg.profile_steps and cfg.save_path:
+                if it == 2:  # trace steps [2, 2 + profile_steps), after the warm-up
+                    profiler = _start_profile(self.device)
+                elif profiler is not None and it >= 2 + cfg.profile_steps:
+                    _stop_profile(profiler, cfg.save_path)
+                    profiler = None
+            if use_chunks and cfg.save_path:
+                # end the chunk at the next save boundary: an iter j with
+                # j % si == 0 saves after it runs (train.py:503-507)
+                j0 = it if it % si == 0 else ((it // si) + 1) * si
+                k = min(spc, target_iters - it, j0 - it + 1)
+            elif use_chunks:
+                k = min(spc, target_iters - it)  # no checkpoints: full chunks
+            else:
+                k = 1
+            bidxs = [batch_stream.next() for _ in range(k)]
+            aidxs = [angle_stream.next() for _ in range(k)]
+            draws = ([self.sampler("train", self.step + j, latent_shapes, out_shape, cfg.num_samples)
+                      for j in range(k)] if self.replay_draws else None)
+            last = it + k - 1
+            if k == spc and use_chunks:
+                rows.append(self.train_chunk(bidxs, aidxs, draws))
+            else:
+                # partial chunks run step by step, as the JAX loop runs them
+                for j in range(k):
+                    rows.append(self.train_step(bidxs[j], aidxs[j], draws and draws[j])[None])
+            buf_rows += k
             stop = False
-            if len(rows) >= flush_every or it == target_iters - 1:
-                block = torch.stack(rows).cpu().numpy()  # one device->host read per block
-                first = start_step + it + 2 - len(rows)
+            if buf_rows >= flush_every or last == target_iters - 1:
+                block = torch.cat(rows).cpu().numpy()  # one device->host read per block
+                first = start_step + last + 2 - buf_rows
                 for j, row in enumerate(block):
                     self.metrics.log(first + j, loss=row[0], kl=row[1], loglik=row[2],
                                      kl_anneal=row[3])
-                rows = []
+                rows, buf_rows = [], 0
                 if np.isnan(block[:, 0]).any():
-                    print(f"NaN loss within steps ending at iter {it}; stopping")
+                    print(f"NaN loss within steps ending at iter {last}; stopping")
                     stop = True
             if not setup_time_saved:
                 setup_time_saved = True
@@ -257,11 +425,14 @@ class Trainer(Server):
                     np.save(os.path.join(cfg.save_path, "setup_time.npy"),
                             (time.time() - self.setup_start_time) / 60.0)
                 start_time = time.time()
-            if cfg.save_path and (it % cfg.save_interval == 0 or it == target_iters - 1):
+            if cfg.save_path and (last % cfg.save_interval == 0 or last == target_iters - 1):
                 self.metrics.save_npy_contract()
                 self.checkpoint()
             if stop:
                 break
+            it += k
+        if profiler is not None:
+            _stop_profile(profiler, cfg.save_path)
         if cfg.save_path:
             np.save(os.path.join(cfg.save_path, "training_time.npy"), (time.time() - start_time) / 60.0)
             self.metrics.save_npy_contract()
@@ -278,7 +449,10 @@ class Trainer(Server):
         losses, recons, recon_means = [], [], []
         for bi in range(self.train_size // cfg.batch_size):
             idx = torch.as_tensor(stream.next(), device=self.device)
-            draws = self.sampler("eval", bi, latent_shapes, out_shape, cfg.num_samples)
+            if self.replay_draws:
+                draws = self.sampler("eval", bi, latent_shapes, out_shape, cfg.num_samples)
+            else:
+                draws = GeneratorDraws(self.seeded.generator("eval", bi), self.device)
             loss, aux = self.eval_step(idx, draws)
             losses.append(float(loss))
             recons.append(aux.recon_sample.cpu().numpy()[..., None])
@@ -299,7 +473,16 @@ class Trainer(Server):
         for name, model in self.models.items():
             named = {k: getattr(next(slots), which) for k, _ in model.named_parameters()}
             out[name] = params_to_flax(model, named)
+        if self.log_pnm is not None:
+            out["log_pnm"] = _scalar(getattr(next(slots), which))
         return out
+
+    def params_tree(self) -> Dict:
+        """The flax ``params``: the models' trees, and ``log_pnm`` under ``train_pnm``."""
+        tree = {name: params_to_flax(model) for name, model in self.models.items()}
+        if self.log_pnm is not None:
+            tree["log_pnm"] = _scalar(self.log_pnm)
+        return tree
 
     def state_tree(self) -> Dict:
         """The flax ``TrainState`` as a state dict: params, opt_state =
@@ -308,7 +491,7 @@ class Trainer(Server):
         adam = {"count": np.array(self.adam_count, np.int32),
                 "mu": self._moments("mu"), "nu": self._moments("nu")}
         return {
-            "params": {name: params_to_flax(model) for name, model in self.models.items()},
+            "params": self.params_tree(),
             "opt_state": {"0": {}, "1": {"0": adam, "1": {}}},
             "kl_anneal": np.array(self.kl_anneal, np.float32),
             "pnm": np.array(self.pnm, np.float32),
@@ -325,20 +508,48 @@ class Trainer(Server):
 
     def restore_state(self, restore_num: Optional[int] = None, use_latest: bool = False) -> str:
         """Load params, Adam state and anneal state from this run's checkpoint
-        (the latest one, or ``ckpt-<restore_num>``), as ``Trainer.restore``."""
+        (the latest one, or ``ckpt-<restore_num>``), as ``Trainer.restore``;
+        every tensor is copied into its own storage (a captured step sees it)."""
         path = latest_checkpoint(self.cfg.save_path, None if use_latest else restore_num)
         ckpt = load_checkpoint(path)
         self.load_state(ckpt)
         adam = ckpt["opt_state"]["1"]["0"]
         self.adam_count = int(adam["count"])
         slots = iter(self.slots)
-        for name, model in self.models.items():
-            mu, nu = params_from_flax(adam["mu"][name]), params_from_flax(adam["nu"][name])
-            for k, _ in model.named_parameters():
+        with torch.no_grad():
+            for name, model in self.models.items():
+                mu, nu = params_from_flax(adam["mu"][name]), params_from_flax(adam["nu"][name])
+                for k, _ in model.named_parameters():
+                    slot = next(slots)
+                    slot.mu.copy_(mu[k])
+                    slot.nu.copy_(nu[k])
+            if self.log_pnm is not None:
                 slot = next(slots)
-                slot.mu.copy_(mu[k])
-                slot.nu.copy_(nu[k])
+                slot.mu.copy_(torch.tensor(np.asarray(adam["mu"]["log_pnm"], np.float32)))
+                slot.nu.copy_(torch.tensor(np.asarray(adam["nu"]["log_pnm"], np.float32)))
         return path
+
+
+def _scalar(t: torch.Tensor) -> np.ndarray:
+    return np.array(t.detach().cpu().numpy(), np.float32)
+
+
+def _start_profile(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, save_path: str) -> None:
+    """Stop the trace and write it as ``<save_path>/profile/trace.json``
+    (Chrome trace format; the JAX package writes a TensorBoard profile there)."""
+    prof.stop()
+    out = os.path.join(save_path, "profile")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
 
 
 def run(cfg: Config, sinograms=None, theta=None, device: DeviceLike = "cuda",

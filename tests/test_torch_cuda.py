@@ -467,3 +467,93 @@ def test_gridrec_on_the_card_matches_the_cpu(cuda):
     want = gridrec(sino, theta, 728, 728)
     got = gridrec(sino.to(cuda), theta.to(cuda), 728, 728).cpu()
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+# The graphed train step: a small run on the Joseph route (64 bins), so that
+# the captured step holds kernels A and B.
+_STEP_THETA = np.linspace(0, np.pi, 24, endpoint=False).astype(np.float32)
+_STEP_KW = dict(truncate_dataset=8, batch_size=4, num_sparse_angles=6, angles_per_iter=5,
+                random_angles=True, num_samples=2, poisson_noise_multiplier=1e4, pnm_start=1e3,
+                num_iter=8, algorithms=["fbp"], num_blocks=2, num_feature_maps=4,
+                intermediate_layers=1, use_normal=True, train=True, seed=1)
+
+
+def _step_trainer(cuda, save_path=None, **over):
+    from ct_pvae_tpu_torch.vi.train import Trainer
+
+    sinos = np.random.default_rng(0).uniform(0, 5, (8, 24, 64)).astype(np.float32)
+    return Trainer(Config(save_path=save_path, **{**_STEP_KW, **over}), sinos, _STEP_THETA, cuda)
+
+
+def _step_inputs(k):
+    rng = np.random.default_rng(7)
+    return ([rng.permutation(8)[:4] for _ in range(k)], [rng.permutation(24)[:5] for _ in range(k)])
+
+
+def _params(tr):
+    return torch.cat([s.param.detach().flatten() for s in tr.slots]).cpu()
+
+
+@pytest.fixture
+def deterministic(cuda):
+    """cuDNN's deterministic algorithms (its default ones sum some backward
+    convs with atomics, so two eager runs differ too)."""
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = False
+
+
+def _assert_steps_close(rows_a, rows_b, tr_a, tr_b):
+    """Losses and params to 1e-6: the same arithmetic on the same draws."""
+    torch.testing.assert_close(rows_a.cpu(), rows_b.cpu(), rtol=1e-6, atol=0)
+    assert float((_params(tr_a) - _params(tr_b)).abs().max()) <= 1e-6
+
+
+def test_graphed_step_matches_the_eager_step(deterministic):
+    """Four replays of the captured train step against four eager steps from
+    the same initial state, draws and indices: the same losses and params;
+    the capture left the state as it was."""
+    cuda = deterministic
+    bidx, aidx = _step_inputs(4)
+    graphed, eager = _step_trainer(cuda), _step_trainer(cuda)
+    assert graphed.joseph and torch.equal(_params(graphed), _params(eager))
+    before = _params(graphed)
+    graphed.capture_step()
+    assert torch.equal(_params(graphed), before) and graphed.step == 0
+    rows_g = graphed.train_chunk(bidx, aidx)
+    rows_e = torch.stack([eager.train_step(b, a) for b, a in zip(bidx, aidx)])
+    assert graphed.step == eager.step == graphed.adam_count == 4
+    _assert_steps_close(rows_g, rows_e, graphed, eager)
+
+
+def test_launch_counters_move_with_replays(cuda):
+    """The capture and its warm-up count no launch; each replay counts one A
+    and one B, as an eager step does."""
+    tr = _step_trainer(cuda)
+    bidx, aidx = _step_inputs(4)
+    before = dict(jr.LAUNCHES)
+    tr.capture_step()
+    assert jr.LAUNCHES == before
+    tr.train_chunk(bidx, aidx)
+    tr.train_chunk(bidx[:3], aidx[:3])
+    assert jr.LAUNCHES["joseph_fwd"] == before["joseph_fwd"] + 7
+    assert jr.LAUNCHES["joseph_adj"] == before["joseph_adj"] + 7
+    tr.train_step(bidx[0], aidx[0])
+    assert jr.LAUNCHES["joseph_adj"] == before["joseph_adj"] + 8
+
+
+def test_beta_draws_are_restart_invariant_under_the_graph(deterministic, tmp_path):
+    """Beta latents and output draw their gammas inside the captured step:
+    four replays equal two eager steps, a checkpoint, a restored trainer
+    and two replays of its own capture (the generator re-seeded by step)."""
+    cuda = deterministic
+    bidx, aidx = _step_inputs(4)
+    whole = _step_trainer(cuda, use_normal=False)
+    rows = whole.train_chunk(bidx, aidx)
+    first = _step_trainer(cuda, str(tmp_path), use_normal=False)
+    head = torch.stack([first.train_step(b, a) for b, a in zip(bidx[:2], aidx[:2])])
+    first.checkpoint()
+    resumed = _step_trainer(cuda, str(tmp_path), use_normal=False, restore=True, use_latest_ckpt=True)
+    assert resumed.step == 2
+    tail = resumed.train_chunk(bidx[2:], aidx[2:])
+    _assert_steps_close(torch.cat([head, tail]), rows, resumed, whole)

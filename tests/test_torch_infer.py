@@ -17,6 +17,7 @@ from ct_pvae_tpu_torch import cli
 from ct_pvae_tpu_torch.config import Config
 from ct_pvae_tpu_torch.ops.radon import num_proj_pixels
 from ct_pvae_tpu_torch.vi.infer import amortized_infer
+from ct_pvae_tpu_torch.vi.loss import GeneratorDraws
 from ct_pvae_tpu_torch.vi.serve import Server
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -104,6 +105,23 @@ def test_cli_infer_on_cpu(tmp_path, capsys):
     assert "reconstructed 10 examples" in capsys.readouterr().out
     mean = np.load(tmp_path / "out" / "reconstruction_mean.npy")
     assert mean.shape == (N, 31, 31, 1) and np.isfinite(mean).all()
+
+
+def test_default_draws_come_from_the_steps_generator(tmp_path):
+    """Without a sampler, every eval step draws inside itself from one
+    generator seeded ``seed + 7`` (a Normal run, as a Beta run): the same
+    results, bitwise, as that generator handed over as the draw source."""
+    sinos, theta = _data()
+    run = tmp_path / "run"
+    _trained_run(run, sinos, theta)
+    kw = dict(sinograms=sinos, theta=theta, num_passes=PASSES, overrides=OVERRIDES, seed=3,
+              device="cpu")
+    out = amortized_infer(str(run), None, **kw)
+    gen = torch.Generator().manual_seed(3 + 7)
+    want = amortized_infer(str(run), None, **kw,
+                           sampler=lambda *_: GeneratorDraws(gen, torch.device("cpu")))
+    for k in ("mean", "std", "sample", "loss"):
+        np.testing.assert_array_equal(out[k], want[k], err_msg=k)
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch, tmp_path):

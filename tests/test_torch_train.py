@@ -396,5 +396,5 @@ def test_cli_train_on_cpu(tmp_path, capsys):
     (tmp_path / "c.yaml").write_text("# recipe\nbatch_size: 10\npnm_start: 1.0e3\nalgorithms: [fbp]\n")
     cfg, device = cli._parse_train_cfg(["--config", str(tmp_path / "c.yaml"), "-b", "3"], "train")
     assert (cfg.batch_size, cfg.pnm_start, cfg.algorithms, device) == (3, 1000.0, ["fbp"], "cuda")
-    with pytest.raises(NotImplementedError, match="train_pnm"):
-        cli.main(["train", "--input_path", str(data), "--train_pnm", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="multihost"):
+        cli.main(["train", "--input_path", str(data), "--multihost", "--device", "cpu"])
