@@ -100,6 +100,26 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
                block but the output head storing bfloat16; the Beta and
                --det runs served through ``cli infer``, the profile run's
                trace
+  11. mcmc  - exact-posterior MCMC on phase 5's run (r4's config, masks,
+               measurements and real init stack) and phase 6's toy run:
+               (a) the image log-prob of example 0 (8 chains, 128^2, 20
+               angles -> 184 bins) on the Joseph route, A forward and B
+               backward with the chains as their batch axis, against its
+               plain version (values 1e-5 relative, gradients 1e-4 of the
+               largest) and the gather route (2e-2); each route's
+               value-and-grad timed with the host held out; A and B at that
+               shape against their plain versions and cuSPARSE; the
+               curvature on both routes, finite and positive; (b) ``cli mcmc
+               --model foam --chains 8 -b 192 -s 32`` (NUTS on the gather
+               route: no A or B launch, the gather projector's calls move;
+               adapted step above 1e-5, accept in [0.3, 1]); draws/s, R-hat,
+               ESS and both PSNRs; (c) ``cli train --config
+               configs/foam_64.yaml -i 1`` on dataset_foam_64, then
+               ``run_foam_mcmc`` with scripts/r5_exec.sh's 64^2 recipe (448
+               draws, 384 warm-up, 8 chains, depth 5): step above 1e-3 and the
+               posterior mean's PSNR above its init's; (d) ``cli mcmc`` on the
+               toy run with HMC, NUTS and SMC (-s 320 -b 80): finite
+               traces, accept rates in (0.3, 1], SMC at beta 1
 
 The last two lines are the nvidia-smi line and
 {"ok": true, "device": {...}}; a line before them holds the per-kernel JSON.
@@ -182,6 +202,18 @@ OPTIONS = {              # each option's config changes over the paper recipe
     "bfloat16": dict(compute_dtype="bfloat16"),
     "profile": dict(profile_steps=3),
 }
+# phase 11: exact-posterior MCMC
+MCMC_CHAINS = 8
+MCMC_LP_RTOL = 1e-5      # the log-prob on A and B against its plain version: values (relative)
+MCMC_GRAD_TOL = 1e-4     # and gradients (of the gradient's largest entry)
+MCMC_ROUTE_RTOL = 2e-2   # the Joseph against the gather route: two discretisations
+                         # (tests/test_image_mcmc.py:136)
+MCMC_FOAM_ARGS = ("-b", "192", "-s", "32")   # 11b: three warm-up chunks of 64, one draw chunk
+MCMC_FOAM_MIN_STEP = 1e-5   # r4's frozen chains adapted to 8.3e-7
+MCMC_64 = dict(number_of_steps=448, burnin=384, num_chains=8, max_depth=5)  # scripts/r5_exec.sh:43-46
+MCMC_64_MIN_STEP = 1e-3
+TOY_MCMC_ARGS = ("-s", "320", "-b", "80")  # 11d: run_toy_mcmc's 200000 and 50000, cut: NUTS
+                                           # trees reach depth 8 here, 236 s at -s 1600 -b 400 (PERF.md)
 
 
 def log(msg: str) -> None:
@@ -1107,6 +1139,197 @@ def phase_options(dev, smi: str) -> dict:
     return timing
 
 
+class Returns:
+    """Within the block, module attribute ``module.name`` is wrapped so that
+    the values it returns are appended to ``values``."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.values = module, name, []
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def kept(*args, **kw):
+            out = self.fn(*args, **kw)
+            self.values.append(out)
+            return out
+
+        setattr(self.module, self.name, kept)
+        return self.values
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_mcmc(dev, smi: str, records: dict, run: str, data: str, toy_run: str, truth) -> dict:
+    """Phase 11: exact-posterior MCMC.  11a: the image log-prob of example 0
+    of phase 5's run (20 measured angles, 184 bins, 128^2, r4's pnm) on the
+    Joseph route (A forward, B backward, the chains as their batch axis)
+    against its plain version and the gather route; A and B at that shape;
+    each route's value-and-grad timed with the host held out; the curvature
+    on both routes.  11b: ``cli mcmc --model foam`` on phase 5's run (NUTS,
+    the gather route).  11c: ``cli train --config configs/foam_64.yaml -i 1``
+    and ``run_foam_mcmc`` with scripts/r5_exec.sh's 64^2 recipe.  11d: ``cli
+    mcmc`` on phase 6's toy run with HMC, NUTS and SMC.  Adds an ``mcmc``
+    record to A's and B's; returns the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from ct_pvae_tpu_torch import cli
+    from ct_pvae_tpu_torch.config import Config
+    from ct_pvae_tpu_torch.data import io as data_io
+    from ct_pvae_tpu_torch.eval import mcmc_run
+    from ct_pvae_tpu_torch.mcmc import image_model as im
+    from ct_pvae_tpu_torch.mcmc.draws import value_and_grad
+    from ct_pvae_tpu_torch.ops import joseph_radon as jr
+    from ct_pvae_tpu_torch.ops import radon
+    from ct_pvae_tpu_torch.prob.distributions import EPS
+
+    t_phase = time.perf_counter()
+    summary = {}
+    # the ground truth where data_io.load_ground_truth finds it, for the PSNRs
+    np.save(os.path.join(os.path.dirname(data), f"{os.path.basename(data)}_training.npy"), truth)
+
+    # -- 11a. the Joseph route at the chain batch ----------------------------
+    cfg = Config.load(os.path.join(run, "config.json"))
+    _, theta, _ = data_io.load_dataset(data)
+    mask = np.load(os.path.join(run, "all_masks.npy"))[0]
+    used = mask > EPS
+    theta_used = np.asarray(theta)[used]
+    meas = torch.as_tensor(np.load(os.path.join(run, "all_proj_samples.npy"))[0][used], device=dev)
+    mask_used = torch.as_tensor(mask[used], device=dev)
+    stack = np.load(os.path.join(run, "all_input_encode.npy"))
+    n, n_det, pnm = stack.shape[1], meas.shape[-1], cfg.poisson_noise_multiplier
+    init_recon = mcmc_run.amplitude_corrected(stack[0, :, :, 0], meas, theta_used, mask_used)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = im.init_chains_from_recon(init_recon, MCMC_CHAINS, gen, device=dev)
+    args = (meas, theta_used, mask_used, pnm, n, n)
+    lp_joseph = im.make_image_log_prob(*args, use_pallas=True, device=dev)
+    lp_gather = im.make_image_log_prob(*args, use_pallas=False, device=dev)
+    lp_plain = im.make_image_log_prob(*(a.cpu() if torch.is_tensor(a) else a for a in args),
+                                      use_pallas=True, device="cpu")
+    reset_counts()
+    v_j, g_j = value_and_grad(lp_joseph, x)
+    curv_j = im.estimate_curvature_diag(x.mean(0), *args, gen=gen, use_pallas=True)
+    torch.cuda.synchronize()
+    route_launches = dict(jr.LAUNCHES)
+    v_p, g_p = value_and_grad(lp_plain, x.cpu())
+    v_g = lp_gather(x).detach()
+    v_err = float(((v_j.cpu() - v_p).abs() / v_p.abs()).max())
+    g_err = float((g_j.cpu() - g_p).abs().max() / g_p.abs().max())
+    route_rel = float(((v_j - v_g).abs() / v_g.abs()).max())
+    log(f"[mcmc] image log-prob of example 0 ({MCMC_CHAINS} chains, {n}^2, {len(theta_used)} angles -> "
+        f"{n_det} bins, pnm {pnm:g}) on A and B against the plain version on the CPU: values max rel err "
+        f"{v_err:.2e} (tolerance {MCMC_LP_RTOL:g}), gradients max abs err / max {g_err:.2e} (tolerance "
+        f"{MCMC_GRAD_TOL:g}); against the gather route max rel diff {route_rel:.2e} (tolerance "
+        f"{MCMC_ROUTE_RTOL:g}); launches of one value-and-grad and one curvature {route_launches}")
+    if not (v_err <= MCMC_LP_RTOL and g_err <= MCMC_GRAD_TOL and route_rel <= MCMC_ROUTE_RTOL
+            and torch.isfinite(g_j).all() and route_launches["joseph_fwd"] == 3
+            and route_launches["joseph_adj"] == 2):
+        raise AssertionError("the Joseph route's image log-prob disagrees or missed A and B")
+    route_ms = {}
+    for name, lp in (("joseph", lp_joseph), ("gather", lp_gather)):
+        ms, us, covered = cuda_time(lambda: value_and_grad(lp, x), 10, per_sample=5)
+        route_ms[name] = dict(device_ms=ms, host_us=us, covered=covered)
+        log(f"[mcmc] one value-and-grad of {MCMC_CHAINS} chains on the {name} route: {ms:.4f} ms device"
+            f"{'' if covered else ' (host in the window)'}, {us:.1f} us host (medians of 10 x 5 behind "
+            f"a spin) on {smi}")
+    for name, use_pallas in (("joseph", True), ("gather", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        curv = im.estimate_curvature_diag(x.mean(0), *args, gen=gen, use_pallas=use_pallas)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ok = bool(torch.isfinite(curv).all() and (curv > 0).all())
+        route_ms[name]["curvature_s"] = wall
+        log(f"[mcmc] estimate_curvature_diag (64 probes) on the {name} route: {wall * 1e3:.2f} ms wall; "
+            f"finite and positive {ok}; range [{float(curv.min()):.3g}, {float(curv.max()):.3g}]; "
+            f"median |joseph - this| / joseph {float(((curv - curv_j).abs() / curv_j).median()):.2e}")
+        if not ok:
+            raise AssertionError(f"the curvature on the {name} route is not finite and positive")
+    summary["routes"] = route_ms
+    table = torch.as_tensor(jr.angle_table_fused(theta_used, n, n, n_det), device=dev)
+    rows = torch.as_tensor(jr.kernel_rows(table.cpu().numpy()), device=dev)
+    imgs = im.softplus_forward(x).reshape(MCMC_CHAINS, n, n).contiguous()
+    g_sino = torch.randn((MCMC_CHAINS, len(theta_used), n_det), generator=gen, device=dev)
+    rec_a = check_kernel("A mcmc", lambda v: jr.radon_fused(v, rows, n_det),
+                         lambda v: jr.radon_fused_plain(v, table, n_det), imgs, table, n, n_det)
+    rec_b = check_kernel("B mcmc", lambda g: jr.radon_fused_adjoint(g, rows, n),
+                         lambda g: jr.radon_fused_adjoint_plain(g, table, n), g_sino, table, n, n_det,
+                         adjoint=True)
+    check_adjoint("A/B mcmc", lambda v: jr.radon_fused(v, rows, n_det),
+                  lambda g: jr.radon_fused_adjoint(g, rows, n), imgs, g_sino.abs())
+    records["joseph_fwd"]["mcmc"] = dict(rec_a, launches=route_launches["joseph_fwd"],
+                                         value_and_grad=route_ms["joseph"])
+    records["joseph_adj"]["mcmc"] = dict(rec_b, launches=route_launches["joseph_adj"])
+
+    # -- 11b. cli mcmc --model foam on phase 5's run --------------------------
+    reset_counts()
+    with Returns(mcmc_run, "run_foam_mcmc") as outs:
+        rc = cli.main(["mcmc", "--model", "foam", "--save_path", run, "--chains", str(MCMC_CHAINS),
+                       *MCMC_FOAM_ARGS])
+    launches, gather = dict(jr.LAUNCHES), radon.CALLS["radon"]
+    out = outs[0]
+    d = out["diag"]
+    mean = np.load(os.path.join(run, "mcmc_posterior_mean.npy"))
+    std = np.load(os.path.join(run, "mcmc_posterior_std.npy"))
+    log(f"[mcmc] cli mcmc --model foam --chains {MCMC_CHAINS} {' '.join(MCMC_FOAM_ARGS)} (NUTS, max depth 7, "
+        f"{n}^2): {out['draws']} draws in {out['seconds']:.2f} s = {out['draws'] / out['seconds']:.3f} draws/s "
+        f"on {smi}; step {d['final_step_size']:.4g}, accept {d['accept_rate']:.3f}, R-hat max "
+        f"{d['rhat_max']:.3f} median {d['rhat_med']:.3f}, ESS min {d['ess_min']:.1f} median "
+        f"{d['ess_med']:.1f}, inv-mass spread 10^{d['inv_mass_spread']:.2f}; PSNR posterior mean "
+        f"{out.get('psnr_mcmc', float('nan')):.3f} dB, amplitude-corrected init "
+        f"{out.get('psnr_init', float('nan')):.3f} dB; gather calls {gather}, Joseph launches {launches}")
+    if rc != 0 or not (np.isfinite(mean).all() and np.isfinite(std).all() and mean.shape == (n, n)) \
+            or gather == 0 or launches["joseph_fwd"] or launches["joseph_adj"] \
+            or not d["final_step_size"] > MCMC_FOAM_MIN_STEP or not 0.3 <= d["accept_rate"] <= 1.0 \
+            or "psnr_mcmc" not in out:
+        raise AssertionError(f"cli mcmc --model foam: rc {rc}, diag {d}, launches {launches}, gather {gather}")
+    summary["foam128"] = dict(out["diag"], draws=out["draws"], seconds=out["seconds"],
+                              psnr_mcmc=out["psnr_mcmc"], psnr_init=out["psnr_init"])
+
+    # -- 11c. the 64^2 convergence check --------------------------------------
+    val64 = os.path.join(os.path.dirname(run), "val64")
+    rc = cli.main(["train", "--config", os.path.join(REPO, "configs", "foam_64.yaml"), "-i", "1",
+                   "--input_path", os.path.join(REPO, "dataset_foam_64"), "--save_path", val64])
+    if rc != 0:
+        raise AssertionError(f"cli train --config configs/foam_64.yaml returned {rc}")
+    out = mcmc_run.run_foam_mcmc(val64, **MCMC_64)
+    d = out["diag"]
+    log(f"[mcmc] 64^2 ({MCMC_64}): {out['draws']} draws in {out['seconds']:.2f} s = "
+        f"{out['draws'] / out['seconds']:.3f} draws/s on {smi}; step {d['final_step_size']:.4g}, accept "
+        f"{d['accept_rate']:.3f}, R-hat max {d['rhat_max']:.3f} median {d['rhat_med']:.3f}, ESS min "
+        f"{d['ess_min']:.1f} median {d['ess_med']:.1f}; PSNR posterior mean {out['psnr_mcmc']:.3f} dB, "
+        f"amplitude-corrected init {out['psnr_init']:.3f} dB (the JAX package's CPU run of this recipe, "
+        f"its own masks and draws: R-hat max 1.048, ESS 280/1238, 26.23 dB against 15.24 dB)")
+    if not (np.isfinite(out["mean"]).all() and d["final_step_size"] > MCMC_64_MIN_STEP
+            and out["psnr_mcmc"] > out["psnr_init"]):
+        raise AssertionError(f"the 64^2 posterior: diag {d}, PSNRs {out['psnr_mcmc']}, {out['psnr_init']}")
+    summary["foam64"] = dict(out["diag"], draws=out["draws"], seconds=out["seconds"],
+                             psnr_mcmc=out["psnr_mcmc"], psnr_init=out["psnr_init"])
+
+    # -- 11d. the toy posterior with each sampler -----------------------------
+    trace_path = os.path.join(toy_run, "posterior_prob_trace.npy")
+    for sampler in ("hmc", "nuts", "smc"):
+        fn = f"{sampler}_sample"
+        t0 = time.perf_counter()
+        with Returns(mcmc_run, fn) as outs:
+            rc = cli.main(["mcmc", "--save_path", toy_run, "--sampler", sampler, *TOY_MCMC_ARGS])
+        wall = time.perf_counter() - t0
+        diag = mcmc_run._scalar_diag(outs[0][1])
+        trace = np.load(trace_path)
+        log(f"[mcmc] toy {sampler} ({' '.join(TOY_MCMC_ARGS)}, 8 chains) in {wall:.2f} s on {smi}: trace "
+            f"{trace.shape}, pixel means {np.round(trace.mean(0), 4).tolist()}; diag {diag}")
+        if rc != 0 or not np.isfinite(trace).all() or (
+                sampler != "smc" and not 0.3 < diag["accept_rate"] <= 1.0) or (
+                sampler == "smc" and diag["beta"] != 1.0):
+            raise AssertionError(f"toy {sampler}: rc {rc}, diag {diag}")
+        os.remove(trace_path)
+        summary[f"toy_{sampler}"] = dict(diag, seconds=wall, pixel_means=trace.mean(0).tolist())
+    log(f"[mcmc] ok in {time.perf_counter() - t_phase:.1f} s")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1474,34 +1697,36 @@ def main() -> int:
         if not psnr_real >= PSNR_FLOOR_DB:
             raise AssertionError(f"posterior-mean PSNR {psnr_real:.2f} dB < {PSNR_FLOOR_DB} dB")
 
-    # -- 8. kernel E and its probe ---------------------------------------
-    conv_fused.LAUNCHES["conv_fused_maxout"] = 0
-    log("[probe] python -m ct_pvae_tpu_torch.scripts.probe_conv_fused (defaults)")
-    rc = probe_conv_fused.main([])
-    probe_launches = conv_fused.LAUNCHES["conv_fused_maxout"]
-    log(f"[probe] kernel E launches in the probe: {probe_launches}")
-    if rc != 0 or probe_launches == 0:
-        raise AssertionError(f"the probe returned {rc} with {probe_launches} launches of E")
-    x, kern, bias = probe_conv_fused.probe_inputs(10, 128, 40, 40, 3, dev)
-    records["conv_fused_maxout"] = check_conv_fused("E probe shape", x, kern, bias, timed=True)
-    odd_e = {  # (B, H, W, C, F, offset in floats)
-        "E ragged, C 11, F 70": (3, 37, 35, 11, 70, 0),
-        "E batch 1, 5 x 5, C 11, F 70": (1, 5, 5, 11, 70, 0),
-        "E batch 1, 5 x 5": (1, 5, 5, 40, 40, 0),
-        "E view off 16 bytes": (2, 16, 16, 40, 40, 1),
-        "E C 80": (2, 20, 19, 80, 12, 0),
-    }
-    for name, (ob, oh, ow, oc, of, offset) in odd_e.items():
-        x, kern, bias = probe_conv_fused.probe_inputs(ob, max(oh, ow), oc, of, 3, dev)
-        check_conv_fused(name, at_offset(x[:, :oh, :ow], offset), kern, bias, timed=False)
-    log("[probe] ok")
+        # -- 8. kernel E and its probe ---------------------------------------
+        conv_fused.LAUNCHES["conv_fused_maxout"] = 0
+        log("[probe] python -m ct_pvae_tpu_torch.scripts.probe_conv_fused (defaults)")
+        rc = probe_conv_fused.main([])
+        probe_launches = conv_fused.LAUNCHES["conv_fused_maxout"]
+        log(f"[probe] kernel E launches in the probe: {probe_launches}")
+        if rc != 0 or probe_launches == 0:
+            raise AssertionError(f"the probe returned {rc} with {probe_launches} launches of E")
+        x, kern, bias = probe_conv_fused.probe_inputs(10, 128, 40, 40, 3, dev)
+        records["conv_fused_maxout"] = check_conv_fused("E probe shape", x, kern, bias, timed=True)
+        odd_e = {  # (B, H, W, C, F, offset in floats)
+            "E ragged, C 11, F 70": (3, 37, 35, 11, 70, 0),
+            "E batch 1, 5 x 5, C 11, F 70": (1, 5, 5, 11, 70, 0),
+            "E batch 1, 5 x 5": (1, 5, 5, 40, 40, 0),
+            "E view off 16 bytes": (2, 16, 16, 40, 40, 1),
+            "E C 80": (2, 20, 19, 80, 12, 0),
+        }
+        for name, (ob, oh, ow, oc, of, offset) in odd_e.items():
+            x, kern, bias = probe_conv_fused.probe_inputs(ob, max(oh, ow), oc, of, 3, dev)
+            check_conv_fused(name, at_offset(x[:, :oh, :ow], offset), kern, bias, timed=False)
+        log("[probe] ok")
 
-    # -- 9. the stretch recipe: make-data, train, A-D, FBP and gridrec -----
-    phase_stretch(dev, smi, records)
+        # -- 9. the stretch recipe: make-data, train, A-D, FBP and gridrec -----
+        phase_stretch(dev, smi, records)
 
-    # -- 10. the training options ------------------------------------------
-    phase_options(dev, smi)
+        # -- 10. the training options ------------------------------------------
+        phase_options(dev, smi)
 
+        # -- 11. exact-posterior MCMC on phases 5 and 6's runs ----------------
+        log(f"[mcmc] summary {json.dumps(phase_mcmc(dev, smi, records, train_run, data, toy_run, truth))}")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     meta = {  # A and B run on C's and D's kernels
         "joseph_fwd": ("csrc/joseph_fwd_static.cu", "ct_pvae_tpu/ops/pallas_radon.py:455"),

@@ -15,7 +15,9 @@ slice 7 data generation (``python -m ct_pvae_tpu_torch.cli make-data``) and
 the 512^2 stretch recipe (``--config configs/foam_stretch.yaml``), slice 8
 the training options (``steps_per_call`` as a CUDA graph of the train step,
 ``train_pnm``, dropout, InstanceNorm, Beta latents and output, ``--det``,
-``profile_steps``, ``conv_impl`` and bfloat16).
+``profile_steps``, ``conv_impl`` and bfloat16), slice 9 exact-posterior
+MCMC (``python -m ct_pvae_tpu_torch.cli mcmc``: HMC, NUTS and SMC over a
+batch of chains, the toy and image posteriors).
 """
 
 __version__ = "0.1.0"

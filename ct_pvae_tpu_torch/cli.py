@@ -3,10 +3,12 @@
   python -m ct_pvae_tpu_torch.cli make-data --img-type foam -n 100 --save-path DS
   python -m ct_pvae_tpu_torch.cli train --input_path DS --save_path RUN --train ...
   python -m ct_pvae_tpu_torch.cli infer --run_path RUN --output OUT --cheap_init
+  python -m ct_pvae_tpu_torch.cli mcmc --model foam --save_path RUN --chains 8
 
-``make-data`` (cli.py:144-180), ``train`` (cli.py:27-212) and ``infer``
-(cli.py:252-298) take the JAX package's flags and dests, plus ``--device``;
-they run on the GPU unless ``--device cpu`` is given.  ``--config`` takes a
+``make-data`` (cli.py:144-180), ``train`` (cli.py:27-212), ``infer``
+(cli.py:252-298) and ``mcmc`` (cli.py:303-357) take the JAX package's flags
+and dests, plus ``--device``; they run on the GPU unless ``--device cpu`` is
+given.  ``--config`` takes a
 run's ``config.json`` or a YAML recipe such as ``configs/toy.yaml``.
 """
 
@@ -219,7 +221,62 @@ def cmd_infer(argv) -> int:
     return 0
 
 
-COMMANDS = {"make-data": cmd_make_data, "train": cmd_train, "infer": cmd_infer}
+def cmd_mcmc(argv) -> int:
+    """Exact-posterior MCMC over one object of a VAE run: the toy 2x2 simplex
+    posterior or the full image posterior."""
+    p = argparse.ArgumentParser(prog="mcmc", description=cmd_mcmc.__doc__)
+    p.add_argument("--save_path", required=True, help="path of the VAE run (masks live there)")
+    p.add_argument("--model", choices=["toy", "foam"], default="toy",
+                   help="toy: 2x2 simplex posterior (reference bin/toy_mcmc_v2.py); "
+                   "foam: full image-space posterior")
+    p.add_argument("-s", type=int, dest="number_of_steps", default=None,
+                   help="post-burnin draws (default: 200000 toy, 2000 foam)")
+    p.add_argument("-b", type=int, dest="burnin", default=None,
+                   help="burn-in steps (default: 50000 toy, 1000 foam)")
+    p.add_argument("--en", type=int, dest="example_num", default=0)
+    p.add_argument("--pnm", type=float, default=None,
+                   help="default: 1e3 toy; the run config's pnm for foam")
+    p.add_argument("--chains", type=int, default=8)
+    p.add_argument("--sampler", choices=["hmc", "nuts", "smc"], default=None,
+                   help="default: hmc toy (reference kernel), nuts foam")
+    p.add_argument("--prior", choices=["tv", "smooth", "flat"], default="tv",
+                   help="foam pixel-space prior (mcmc/image_model.py)")
+    p.add_argument("--prior_weight", type=float, default=10.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    args = p.parse_args(argv)
+    from .eval.mcmc_run import run_foam_mcmc, run_toy_mcmc
+
+    if args.model == "foam":
+        run_foam_mcmc(
+            save_path=args.save_path,
+            number_of_steps=args.number_of_steps if args.number_of_steps is not None else 2000,
+            burnin=args.burnin if args.burnin is not None else 1000,
+            example_num=args.example_num,
+            poisson_noise_multiplier=args.pnm,
+            num_chains=args.chains,
+            sampler=args.sampler or "nuts",
+            prior=args.prior,
+            prior_weight=args.prior_weight,
+            seed=args.seed,
+            device=args.device,
+        )
+        return 0
+    run_toy_mcmc(
+        save_path=args.save_path,
+        number_of_steps=args.number_of_steps if args.number_of_steps is not None else 200000,
+        burnin=args.burnin if args.burnin is not None else 50000,
+        example_num=args.example_num,
+        poisson_noise_multiplier=args.pnm if args.pnm is not None else 1e3,
+        num_chains=args.chains,
+        sampler=args.sampler or "hmc",
+        seed=args.seed,
+        device=args.device,
+    )
+    return 0
+
+
+COMMANDS = {"make-data": cmd_make_data, "train": cmd_train, "infer": cmd_infer, "mcmc": cmd_mcmc}
 
 
 def main(argv: Optional[list] = None) -> int:

@@ -97,24 +97,39 @@ def radon(image: torch.Tensor, theta: torch.Tensor, *, pad: bool = False,
     ``pad`` zero-pads the image to (n_det, n_det) first; ``n_det`` defaults
     to H after the optional pad, which needs a square image.
     """
-    if pad:
-        image = pad_phantom(image, n_det)
-    h, w = image.shape[-2], image.shape[-1]
-    if n_det is None:
-        if h != w:
-            raise ValueError("unpadded radon requires square images; use pad=True")
-        n_det = h
-    CALLS["radon"] += 1
-    theta = torch.as_tensor(theta, device=image.device)
-    a = theta.shape[0]
-    batch_shape = image.shape[:-2]
-    img_flat = image.reshape(-1, h * w)
-    n_s = h  # unit steps along the ray cover the (padded) image support
-    sino = 0.0
-    for flat, wgt in _bilinear_taps(*_sample_grid(theta, n_s, n_det, h, w), h, w):
-        vals = img_flat.index_select(1, flat.reshape(-1)).reshape(-1, a, n_s, n_det)
-        sino = sino + vals * wgt[None]
-    return sino.sum(dim=2).reshape(batch_shape + (a, n_det))
+    return FixedAngleRadon(theta, image.shape[-2], image.shape[-1], pad=pad, n_det=n_det,
+                           device=image.device)(image)
+
+
+class FixedAngleRadon:
+    """``radon`` at fixed angles and image size, its bilinear taps found once:
+    the samplers project at the same angles thousands of times."""
+
+    def __init__(self, theta, h: int, w: int, *, pad: bool = False, n_det: Optional[int] = None,
+                 device=None):
+        if pad:
+            n_det = num_proj_pixels(h, w) if n_det is None else n_det
+            h = w = n_det
+        elif n_det is None:
+            if h != w:
+                raise ValueError("unpadded radon requires square images; use pad=True")
+            n_det = h
+        self.pad, self.n_det, self.h, self.w = pad, n_det, h, w
+        theta = torch.as_tensor(theta, device=device)
+        self.a = theta.shape[0]
+        self.taps = _bilinear_taps(*_sample_grid(theta, h, n_det, h, w), h, w)  # n_s = h unit steps
+
+    def __call__(self, image: torch.Tensor) -> torch.Tensor:
+        if self.pad:
+            image = pad_phantom(image, self.n_det)
+        CALLS["radon"] += 1
+        batch_shape = image.shape[:-2]
+        img_flat = image.reshape(-1, self.h * self.w)
+        sino = 0.0
+        for flat, wgt in self.taps:
+            vals = img_flat.index_select(1, flat.reshape(-1)).reshape(-1, self.a, self.h, self.n_det)
+            sino = sino + vals * wgt[None]
+        return sino.sum(dim=2).reshape(batch_shape + (self.a, self.n_det))
 
 
 def radon_low_mem(image: torch.Tensor, theta: torch.Tensor, *, pad: bool = False,

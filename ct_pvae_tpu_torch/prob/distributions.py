@@ -1,8 +1,11 @@
-"""Distributions of the ELBO (port of ``ct_pvae_tpu/prob/distributions.py``).
+"""Distributions of the ELBO and of the MCMC targets (port of
+``ct_pvae_tpu/prob/distributions.py``).
 
 ``positive_range``, ``Normal``, ``TruncatedNormal``, ``Beta``, the
 Normal-Normal and Beta-Beta KLs (distributions.py:32-179, 269-276) and
-``betaln`` (the JAX package's, after scipy's ``betaln``/``algdiv``).
+``betaln`` (the JAX package's, after scipy's ``betaln``/``algdiv``); then
+the MCMC targets' ``Poisson``, ``Dirichlet``, ``DirichletMixture`` and
+``toy_prior`` (distributions.py:182-259).
 Sampling takes its draws as tensors (standard normal ``eps`` for Normal,
 uniform ``u`` on [EPS, 1-EPS) for the truncated normal's inverse CDF, the
 log-gamma variates of each concentration for Beta), so a test can feed the
@@ -197,3 +200,78 @@ def kl_beta_beta(p: Beta, q: Beta) -> torch.Tensor:
     total_p = p.a + p.b
     return (betaln(q.a, q.b) - betaln(p.a, p.b) + (p.a - q.a) * torch.digamma(p.a)
             + (p.b - q.b) * torch.digamma(p.b) + (q.a - p.a + q.b - p.b) * torch.digamma(total_p))
+
+
+@dataclass
+class Poisson:
+    rate: torch.Tensor
+
+    def log_prob(self, k: torch.Tensor) -> torch.Tensor:
+        """The continuous relaxation (defined for real ``k``), rate floored at EPS."""
+        safe_rate = torch.clamp(self.rate, min=EPS)
+        return torch.xlogy(k, safe_rate) - safe_rate - torch.lgamma(k + 1.0)
+
+    def mean(self) -> torch.Tensor:
+        return self.rate
+
+
+def _sample_dirichlet(concentration: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """Dirichlet draws of ``concentration``'s shape: log-gamma variates
+    normalised in log space, since a float32 gamma draw of a concentration
+    like ``toy_prior``'s 0.0039 underflows to 0."""
+    return torch.softmax(draw_log_gamma(concentration, gen), dim=-1)
+
+
+@dataclass
+class Dirichlet:
+    concentration: torch.Tensor  # (..., K)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.concentration
+        norm = torch.lgamma(c).sum(-1) - torch.lgamma(c.sum(-1))
+        return torch.xlogy(c - 1.0, x).sum(-1) - norm
+
+    def sample(self, gen: torch.Generator, sample_shape: tuple = ()) -> torch.Tensor:
+        return _sample_dirichlet(self.concentration.expand(tuple(sample_shape) + self.concentration.shape), gen)
+
+    def mean(self) -> torch.Tensor:
+        c = self.concentration
+        return c / c.sum(-1, keepdim=True)
+
+
+@dataclass
+class DirichletMixture:
+    """Finite mixture of Dirichlets (the toy prior, helper_functions.py:531-559)."""
+
+    log_weights: torch.Tensor     # (M,)
+    concentrations: torch.Tensor  # (M, K)
+
+    @classmethod
+    def create(cls, weights, concentrations) -> "DirichletMixture":
+        return cls(log_weights=torch.log(torch.as_tensor(weights, dtype=torch.float32)),
+                   concentrations=torch.as_tensor(concentrations, dtype=torch.float32))
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        comp = Dirichlet(self.concentrations).log_prob(x[..., None, :])  # (..., M)
+        return torch.logsumexp(self.log_weights + comp, dim=-1)
+
+    def sample(self, gen: torch.Generator, sample_shape: tuple = ()) -> torch.Tensor:
+        """A component drawn by weight, then a draw of that component."""
+        shape = tuple(sample_shape)
+        idx = torch.multinomial(torch.softmax(self.log_weights, 0), max(1, math.prod(shape)),
+                                replacement=True, generator=gen).reshape(shape)
+        draws = _sample_dirichlet(self.concentrations.expand(shape + self.concentrations.shape), gen)
+        pick = idx[..., None, None].expand(shape + (1, self.concentrations.shape[-1]))
+        return torch.gather(draws, -2, pick)[..., 0, :]
+
+    def to(self, device) -> "DirichletMixture":
+        return DirichletMixture(self.log_weights.to(device), self.concentrations.to(device))
+
+
+def toy_prior(
+    mix_prob: float = 0.3,
+    conc_0=(0.35580334, 0.94963009, 0.60227688, 0.43061459),
+    conc_1=(0.00390356, 0.44335424, 0.83152378, 0.52733124),
+) -> DirichletMixture:
+    """The toy 2x2 simplex prior P(O) (reference helper_functions.py:531-559)."""
+    return DirichletMixture.create([mix_prob, 1.0 - mix_prob], [conc_0, conc_1])

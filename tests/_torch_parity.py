@@ -72,3 +72,88 @@ class JaxTrainSampler:
             for _ in range(index + 1):
                 k, key = jax.random.split(k)
         return jax_draws(key, latent_shapes, out_shape, num_samples)
+
+
+_split2 = jax.jit(jax.vmap(jax.random.split))
+_split4 = jax.jit(jax.vmap(lambda k: jax.random.split(k, 4)))
+_uniform = jax.jit(jax.vmap(jax.random.uniform))
+
+
+def _normals(keys, dim):
+    return np.asarray(jax.vmap(lambda k: jax.random.normal(k, (dim,)))(keys))
+
+
+class JaxSamplerKeys:
+    """Draw source of the port's samplers that walks the key tree of the JAX
+    sampler started from ``key`` (one key a chain, split where the JAX
+    sampler splits it: ``mcmc/hmc.py:86-96``, ``mcmc/nuts.py:166-167,
+    253-255, 281-282, 304``, ``mcmc/smc.py:42, 80-96, 146, 156``), so a port
+    transition makes the JAX transition's draws.  A masked-out chain's keys
+    stay as they are, as a finished chain's do under ``vmap``.
+
+    ``margins`` collects, for every decision of an active chain, its distance
+    from the threshold: |log u - log ratio| for accept and take decisions,
+    |u - 1/2| for NUTS's direction; ``last_active`` is the mask of the latest
+    decision (the U-turn checks that follow it run on the same chains)."""
+
+    def __init__(self, key, mutation_steps: int = 0):
+        self.key = key
+        self.mutation_steps = mutation_steps
+        self.margins = []
+        self.last_active = None
+
+    def _chain_keys(self, n):
+        self.key, sub = jax.random.split(self.key)
+        return np.asarray(_split2(jax.random.split(sub, n)))  # (n, 2, key)
+
+    def normal(self, tag, shape, device):
+        n, dim = shape
+        if tag in ("hmc.momentum", "nuts.momentum"):
+            k = self._chain_keys(n)
+            self.next_key = k[:, 1]        # hmc: the accept key; nuts: the loop key
+            return torch.from_numpy(_normals(k[:, 0], dim).copy())
+        if tag == "smc.momentum":
+            if self.mut_keys is None:  # split(k_mut, N), then split(., mutation_steps) a particle
+                self.mut_keys = np.asarray(jax.vmap(lambda k: jax.random.split(k, self.mutation_steps))(
+                    jax.random.split(self._k_mut, n)))
+                self.step = 0
+            k = np.asarray(_split2(self.mut_keys[:, self.step]))
+            self.step += 1
+            self.next_key = k[:, 1]
+            return torch.from_numpy(_normals(k[:, 0], dim).copy())
+        raise KeyError(tag)
+
+    def uniform(self, tag, shape, device):
+        if tag != "smc.resample":
+            raise KeyError(tag)
+        self.key, k_res, self._k_mut = jax.random.split(self.key, 3)
+        self.mut_keys = None
+        return torch.tensor(float(jax.random.uniform(k_res, ())), dtype=torch.float32)
+
+    def accept(self, tag, log_ratio, active=None, count=None):
+        lr = log_ratio.detach().cpu().numpy().astype(np.float64)
+        act = np.ones(lr.shape, bool) if active is None else active.cpu().numpy()
+        self.last_active = act
+        if tag in ("hmc.accept", "smc.accept"):
+            u = np.asarray(_uniform(self.next_key))
+        elif tag == "nuts.direction":
+            k = np.asarray(_split4(self.next_key))
+            self.next_key = np.where(act[:, None], k[:, 0], self.next_key)
+            self.sub_key, self.merge_key = k[:, 2], k[:, 3]
+            u = np.asarray(_uniform(k[:, 1]))
+            dec = u < 0.5
+            self.margins += list(np.abs(u - 0.5)[act])
+            return torch.from_numpy(act & dec)
+        elif tag == "nuts.leaf":
+            k = np.asarray(_split2(self.sub_key))
+            self.sub_key = np.where(act[:, None], k[:, 0], self.sub_key)
+            u = np.asarray(_uniform(k[:, 1]))
+        elif tag == "nuts.merge":
+            u = np.asarray(_uniform(self.merge_key))
+        else:
+            raise KeyError(tag)
+        log_u = np.log(u.astype(np.float32)).astype(np.float64)
+        dec = log_u < lr
+        close = act & np.isfinite(lr)
+        self.margins += list(np.abs(log_u - lr)[close])
+        return torch.from_numpy(act & dec)

@@ -557,3 +557,70 @@ def test_beta_draws_are_restart_invariant_under_the_graph(deterministic, tmp_pat
     assert resumed.step == 2
     tail = resumed.train_chunk(bidx[2:], aidx[2:])
     _assert_steps_close(torch.cat([head, tail]), rows, resumed, whole)
+
+
+# The image posterior (phase 11 of chip_smoke.py): 128^2 chains of the foam
+# phantom, 20 of 180 angles onto 184 bins at a 1/20 dose, pnm 1e4.
+def _image_posterior(cuda, chains=4):
+    from ct_pvae_tpu_torch.mcmc import image_model as im
+
+    rng = np.random.default_rng(11)
+    n, n_det = 128, 184
+    theta = np.sort(rng.choice(_THETA, 20, replace=False))
+    c = (np.arange(n) + 0.5) / n * 2.0 - 1.0
+    xx, yy = np.meshgrid(c, c, indexing="ij")
+    gt = (np.hypot(xx, yy) <= 0.8).astype(np.float32) * 0.5
+    mask = np.full(20, 1.0 / 20, np.float32)
+    proj = radon.radon(torch.as_tensor(gt[None]), torch.as_tensor(theta), pad=True, n_det=n_det)[0].numpy()
+    meas = rng.poisson(np.clip(proj * mask[:, None], 0, None) * 1e4).astype(np.float32) / 1e4
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = im.init_chains_from_recon(gt + 0.05, chains, gen, device=cuda)
+    return im, (meas, theta, mask, 1e4, n, n), x, gen
+
+
+def test_image_log_prob_on_kernels_a_and_b_matches_plain(cuda):
+    """The Joseph route's value and gradient at the chain batch on A and B
+    against the same function on the plain version (the CPU), and within
+    2e-2 of the gather route."""
+    from ct_pvae_tpu_torch.mcmc.draws import value_and_grad
+
+    im, args, x, _ = _image_posterior(cuda)
+    before = dict(jr.LAUNCHES)
+    v, g = value_and_grad(im.make_image_log_prob(*args, use_pallas=True, device=cuda), x)
+    torch.cuda.synchronize()
+    assert jr.LAUNCHES["joseph_fwd"] == before["joseph_fwd"] + 1
+    assert jr.LAUNCHES["joseph_adj"] == before["joseph_adj"] + 1
+    v_p, g_p = value_and_grad(im.make_image_log_prob(*args, use_pallas=True, device="cpu"), x.cpu())
+    torch.testing.assert_close(v.cpu(), v_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g.cpu(), g_p, rtol=0, atol=1e-4 * float(g_p.abs().max()))
+    v_g = im.make_image_log_prob(*args, use_pallas=False, device=cuda)(x)
+    assert float(((v - v_g).abs() / v_g.abs()).max()) < 2e-2
+
+
+def test_nuts_chunk_on_the_card(cuda):
+    """One warm-up chunk of NUTS on the gather route, its draws from a CUDA
+    generator: finite states, a step that adapted, the chains moved."""
+    from ct_pvae_tpu_torch.mcmc import NUTSConfig, nuts_sample
+
+    im, args, x, gen = _image_posterior(cuda)
+    lp = im.make_image_log_prob(*args, use_pallas=False, device=cuda)
+    inv_mass = 1.0 / im.estimate_curvature_diag(x.mean(0), *args, gen=gen, use_pallas=False)
+    cfg = NUTSConfig(num_results=4, num_burnin=8, step_size=1e-2, max_depth=5, adapt_mass=False)
+    samples, diag = nuts_sample(lp, x, gen, cfg, inv_mass0=inv_mass)
+    assert samples.shape == (4,) + tuple(x.shape) and samples.device.type == "cuda"
+    assert torch.isfinite(samples).all() and float(diag["final_step_size"]) > 1e-5
+    assert float((samples[-1] - x).abs().max()) > 1e-3
+    assert 0.0 < float(diag["accept_rate"]) <= 1.0
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_curvature_on_both_routes_on_the_card(cuda, use_pallas):
+    """estimate_curvature_diag through B (the Joseph route) or the gather
+    projector's VJP, on the same probes: finite, positive, and the card's
+    own CPU route within float32 rounding."""
+    im, args, x, gen = _image_posterior(cuda)
+    probes = torch.randint(0, 2, (16, x.shape[1]), generator=gen, device=cuda).float() * 2 - 1
+    got = im.estimate_curvature_diag(x.mean(0), *args, use_pallas=use_pallas, probes=probes)
+    want = im.estimate_curvature_diag(x.mean(0).cpu(), *args, use_pallas=use_pallas, probes=probes.cpu())
+    assert torch.isfinite(got).all() and (got > 0).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-6 * float(want.abs().max()))
