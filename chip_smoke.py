@@ -214,6 +214,13 @@ MCMC_64 = dict(number_of_steps=448, burnin=384, num_chains=8, max_depth=5)  # sc
 MCMC_64_MIN_STEP = 1e-3
 TOY_MCMC_ARGS = ("-s", "320", "-b", "80")  # 11d: run_toy_mcmc's 200000 and 50000, cut: NUTS
                                            # trees reach depth 8 here, 236 s at -s 1600 -b 400 (PERF.md)
+# phase 12: the evaluation stage
+MERIT_FULL_DB = 1.5      # 12a: the full-sinogram row's PSNR within this of the JAX package's
+                         # artifact (its rows 0 and 1 depend on the data and the noise only)
+PIXEL_REPEATS, PIXEL_SAMPLES = 10000, 100  # 12d: the reference's scale (main_ct_vae.py:648)
+PIXEL_NEAR = 0.05        # a draw within this of every pixel of an object counts as that object
+FIDELITY_N = 32          # 12e: foams (results/fidelity/fidelity.json has 100)
+FIDELITY_DB = 2.0        # its noisy median PSNR within this of that file's
 
 
 def log(msg: str) -> None:
@@ -728,13 +735,15 @@ class Timed:
             setattr(module, name, fn)
 
 
-def phase_stretch(dev, smi: str, records: dict) -> dict:
+def phase_stretch(dev, smi: str, records: dict, keep: str) -> dict:
     """Phase 9: ``make-data`` for the stretch recipe's 512^2 foams on kernel C
     and the toy objects, ``cli train --config configs/foam_stretch.yaml`` at
     full width (A, B, D), one stretch step against the CPU path, A-D at the
     stretch shapes, the FBP through D against the gather route, and
     ``gridrec_fourier`` on the card against the CPU.  Adds a ``stretch``
-    record to each of A-D's; returns the path's launches by kernel."""
+    record to each of A-D's; returns the path's launches by kernel.  Leaves
+    the dataset, its ground truth and the trained run under ``keep`` for
+    phase 12, copied before the step check rewrites the run's caches."""
     import numpy as np
     import torch
 
@@ -819,6 +828,9 @@ def phase_stretch(dev, smi: str, records: dict) -> dict:
             f"projector calls {gather}")
         if rc != 0 or train_launches != expected or gather:
             raise AssertionError(f"stretch train returned {rc}; launches {train_launches}, gather {gather}")
+        shutil.copytree(ds, os.path.join(keep, "dataset_foam_512"))
+        shutil.copy(os.path.join(tmp, "foam_512_training.npy"), keep)
+        shutil.copytree(run, os.path.join(keep, "stretch_run"), symlinks=True)
         losses = np.load(os.path.join(run, "train_loss_vec.npy"))
         loss_final = np.load(os.path.join(run, "loss_final.npy"))
         recon = np.load(os.path.join(run, "reconstruction_mean.npy"))
@@ -1330,6 +1342,230 @@ def phase_mcmc(dev, smi: str, records: dict, run: str, data: str, toy_run: str, 
     return summary
 
 
+def phase_eval(dev, smi: str, records: dict, tmp: str, data: str) -> dict:
+    """Phase 12: the evaluation stage on the runs phases 5, 6 and 9 left
+    (copied as training left them).  12a: ``cli merit`` on phase 5's run
+    (fbp, then gridrec_fourier) beside the JAX package's artifacts; 12b:
+    ``cli merit`` on the stretch run (row 0 through D, row 1 on the gather
+    route, held against a loop of fbp), D at that shape against its plain
+    version; 12c: ``visualize_arrays`` on phase 5's run (one A launch), its
+    eval step against the CPU path on the same draws; 12d: the pixel
+    histograms' draws on phase 6's toy run at the reference's 10,000 x 100
+    and the analytic posterior; 12e: ``cli fidelity -n 32`` (C launches), C
+    at its chunk against its plain version; 12f: the box-plot tables of
+    12a's and 12b's merits and the dataset panels.  PNGs where matplotlib
+    is installed.  Adds a ``merit`` record to D's and a ``fidelity`` record
+    to C's; returns the phase's numbers."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from ct_pvae_tpu_torch import cli
+    from ct_pvae_tpu_torch.config import Config
+    from ct_pvae_tpu_torch.data import io as data_io
+    from ct_pvae_tpu_torch.data.toy import X_TRAIN_0, X_TRAIN_1
+    from ct_pvae_tpu_torch.eval import boxplot, dataset_viz, merit, pixel_dist, visualize
+    from ct_pvae_tpu_torch.ops import joseph_radon as jr
+    from ct_pvae_tpu_torch.ops import radon
+    from ct_pvae_tpu_torch.ops.fbp import fbp
+    from ct_pvae_tpu_torch.vi.loss import Draws, GeneratorDraws
+    from ct_pvae_tpu_torch.vi.train import Trainer
+
+    t_phase = time.perf_counter()
+    plots = importlib.util.find_spec("matplotlib") is not None
+    if not plots:
+        log("[eval] matplotlib is not installed on this machine: the eval stage's compute functions "
+            "run and are checked; its PNGs are not written")
+    summary = {}
+    zero = {k: 0 for k in jr.LAUNCHES}
+    row_names = ("full", "partial", "P-VAE")
+
+    # -- 12a. cli merit on phase 5's run ----------------------------------------
+    run = os.path.join(tmp, "merit_run")
+    cfg = Config.load(os.path.join(run, "config.json"))
+    n_det = data_io.load_dataset(data)[2]
+    for alg in ("fbp", "gridrec_fourier"):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["merit", "--input_path", data, "--save_path", run, "--pnm",
+                       str(cfg.poisson_noise_multiplier), "--baseline_alg", alg])
+        wall = time.perf_counter() - t0
+        got = dict(jr.LAUNCHES)
+        log(f"[eval] 12a cli merit --baseline_alg {alg} on phase 5's run ({cfg.truncate_dataset} "
+            f"examples, {n_det} bins) in {wall:.2f} s: launches {got} (the gather backprojector below "
+            f"512 bins)")
+        if rc != 0 or got != zero:
+            raise AssertionError(f"cli merit ({alg}) returned {rc} with launches {got}")
+        summary[f"merit_{alg}_s"] = wall
+    rows = np.load(os.path.join(run, "final_ave_merit.npy"))
+    rows_gr = np.load(os.path.join(run, "final_ave_merit_gridrec.npy"))
+    mean_row = np.load(os.path.join(run, "final_ave_merit_mean.npy"))
+    r4 = os.path.join(REPO, "results", "foam_paper_run_r4")
+    ref, ref_mean = (np.load(os.path.join(r4, f)) for f in ("final_ave_merit.npy", "final_ave_merit_mean.npy"))
+    ref_gr = np.load(os.path.join(REPO, "results", "foam_paper_run", "final_ave_merit_gridrec.npy"))
+    for i, name in enumerate(row_names):
+        log(f"[eval] 12a {name:8s} PSNR {rows[i, 2]:.3f} dB, SSIM {rows[i, 1]:.4f}, MSE {rows[i, 0]:.3e} "
+            f"(fbp); gridrec {rows_gr[i, 2]:.3f} dB | JAX artifacts (1000 objects, a TPU): fbp "
+            f"{ref[i, 2]:.3f} dB, gridrec {ref_gr[i, 2]:.3f} dB")
+    log(f"[eval] 12a posterior mean PSNR {mean_row[2]:.3f} dB (JAX artifact {ref_mean[2]:.3f} dB)")
+    psnr = rows[:, 2]
+    if not psnr[0] > psnr[2] > psnr[1] or not abs(psnr[0] - ref[0, 2]) <= MERIT_FULL_DB:
+        raise AssertionError(f"merit PSNRs {psnr} (full > P-VAE > partial, full within "
+                             f"{MERIT_FULL_DB} dB of {ref[0, 2]:.2f})")
+    summary["merit_r4"] = dict(fbp=rows.tolist(), gridrec=rows_gr.tolist(), mean=mean_row.tolist())
+
+    # -- 12b. cli merit on the stretch run: row 0 through D -------------------
+    sdata, srun = os.path.join(tmp, "dataset_foam_512"), os.path.join(tmp, "stretch_run")
+    scfg = Config.load(os.path.join(srun, "config.json"))
+    n_s = len(np.load(os.path.join(srun, "reconstruction_final.npy"), mmap_mode="r"))
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["merit", "--input_path", sdata, "--save_path", srun, "--pnm",
+                   str(scfg.poisson_noise_multiplier)])
+    wall = time.perf_counter() - t0
+    got, expected = dict(jr.LAUNCHES), {**zero, "joseph_adj_static": -(-n_s // 32)}
+    srows = np.load(os.path.join(srun, "final_ave_merit.npy"))
+    log(f"[eval] 12b cli merit on the stretch run ({n_s} foams, 512^2, 728 bins, 360 angles) in "
+        f"{wall:.2f} s: launches {got} (expected {expected}: D once per chunk of 32 for row 0, none "
+        f"for row 1's per-example angles); PSNR full {srows[0, 2]:.3f}, partial {srows[1, 2]:.3f}, "
+        f"P-VAE {srows[2, 2]:.3f} dB (floor {PSNR_FLOOR_DB} dB on full)")
+    if rc != 0 or got != expected or not srows[0, 2] >= PSNR_FLOOR_DB:
+        raise AssertionError(f"stretch merit returned {rc}, launches {got}, PSNRs {srows[:, 2]}")
+    summary["merit_stretch"] = dict(rows=srows.tolist(), seconds=wall)
+    sinos_s, theta_s, n_det_s = data_io.load_dataset(sdata)
+    theta_f = tuple(float(t) for t in theta_s)
+    table = jr.static_table(theta_f, n_det_s, n_det_s, dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    g = torch.rand((n_s, len(theta_f), n_det_s), generator=gen, device=dev)
+    rec = check_kernel("D merit stretch", lambda x: jr.backproject_static(x, theta_f, n_det_s, n_det_s),
+                       lambda x: jr.radon_fused_adjoint_plain(x, table, n_det_s), g, table, n_det_s,
+                       n_det_s, adjoint=True)
+    records["joseph_adj_static"]["merit"] = dict(rec, launches=got["joseph_adj_static"])
+    del g
+    used, th_used = merit.measured_angles(np.load(os.path.join(srun, "all_masks.npy"))[:n_s],
+                                          np.load(os.path.join(srun, "all_proj_samples.npy"))[:n_s], theta_s)
+    u, th = torch.as_tensor(used, device=dev), torch.as_tensor(th_used, device=dev)
+    reset_counts()
+    batched = fbp(u, th, n_det_s, n_det_s)
+    loop = torch.cat([fbp(u[i:i + 1], th[i:i + 1], n_det_s, n_det_s) for i in range(n_s)])
+    torch.cuda.synchronize()
+    err = float((batched - loop).abs().max() / loop.abs().max())
+    log(f"[eval] 12b row 1's FBP ({tuple(u.shape)} at per-example angles -> {n_det_s}^2) against a loop "
+        f"over the examples: max abs diff / max {err:.2e}; launches {dict(jr.LAUNCHES)}")
+    if dict(jr.LAUNCHES) != zero or not err <= KERNEL_RTOL:
+        raise AssertionError("per-example angles: not the gather route, or not the loop's result")
+    del u, th, batched, loop
+    torch.cuda.empty_cache()
+
+    # -- 12c. visualize on phase 5's run ----------------------------------------
+    vcfg = cfg.replace(input_path=data, save_path=run, train=False, restore=True, use_latest_ckpt=True,
+                       example_num=0)
+    tr = Trainer(vcfg, device=dev)
+    recorder = GeneratorDraws(torch.Generator(device=dev).manual_seed(vcfg.seed + 11), dev, record=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    panels = visualize.visualize_arrays(vcfg, tr, recorder)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, gather = dict(jr.LAUNCHES), radon.CALLS["radon"]
+    res = panels["results"]
+    log(f"[eval] 12c visualize_arrays (example 0 tiled to {vcfg.batch_size}) in {wall:.3f} s: launches "
+        f"{got} (expected A once: (20,128,128) x 180 -> 184), gather calls {gather} (the computed "
+        f"sinogram); loss_M_VAE {panels['loss_M_VAE']:.6g}, kl {panels['kl_divergence']:.6g}, loglik "
+        f"{panels['loglik']:.6g}; PSNR full {res['full'][2]:.3f}, partial {res['partial'][2]:.3f}, "
+        f"sample {res['pvae'][2]:.3f}, mean {res['pvae_mean'][2]:.3f} dB")
+    if got != {**zero, "joseph_fwd": 1} or gather != 1 or not res["full"][2] >= PSNR_FLOOR_DB:
+        raise AssertionError(f"visualize: launches {got}, gather {gather}, results {res}")
+    rec_draws = recorder.recorded(vcfg.num_samples)
+    cpu_draws = Draws([[e.cpu() for e in es] for es in rec_draws.eps], [x.cpu() for x in rec_draws.u])
+    cpu_panels = visualize.visualize_arrays(vcfg, Trainer(vcfg, device="cpu", kernel_route=True), cpu_draws)
+    rel = abs(panels["loss_M_VAE"] - cpu_panels["loss_M_VAE"]) / abs(cpu_panels["loss_M_VAE"])
+    log(f"[eval] 12c eval step GPU vs CPU on the same draws: loss {panels['loss_M_VAE']:.7g} vs "
+        f"{cpu_panels['loss_M_VAE']:.7g} (rel {rel:.2e}, tolerance {CPU_EVAL_RTOL:g})")
+    if not rel <= CPU_EVAL_RTOL:
+        raise AssertionError("visualize's eval step on the card disagrees with the CPU path")
+    if plots:
+        visualize.write_panels(run, panels, vcfg.num_sparse_angles)
+    summary["visualize"] = dict(results=res, loss=panels["loss_M_VAE"], seconds=wall, cpu_rel=rel)
+    del tr
+
+    # -- 12d. pixel histograms' draws on phase 6's toy run -------------------
+    toy_run = os.path.join(tmp, "toy_eval_run")
+    tcfg = Config.load(os.path.join(toy_run, "config.json")).replace(
+        save_path=toy_run, train=False, restore=True, use_latest_ckpt=True)
+    ttr = Trainer(tcfg, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    samples = pixel_dist.collect_pixel_samples(ttr, 0, PIXEL_REPEATS, PIXEL_SAMPLES)
+    secs = time.perf_counter() - t0
+    got, gather = dict(jr.LAUNCHES), radon.CALLS["radon"]
+    h0, h1 = pixel_dist.toy_posterior(ttr, 0, tcfg.poisson_noise_multiplier)
+    near = [float((np.abs(samples - x.reshape(-1)) < PIXEL_NEAR).all(axis=1).mean()) for x in (X_TRAIN_0, X_TRAIN_1)]
+    log(f"[eval] 12d pixel draws of the toy run: {PIXEL_REPEATS} repeats x {PIXEL_SAMPLES} draws "
+        f"(the reference's scale) in {secs:.2f} s on {smi}, {-(-PIXEL_REPEATS // 1000)} eval steps of "
+        f"1000 copies: gather calls {gather}, launches {got}; samples {samples.shape}; analytic "
+        f"posterior h0 {h0:.6f}, h1 {h1:.6f} (sum {h0 + h1:.8f}); draws within {PIXEL_NEAR} of object 0 "
+        f"{near[0]:.4f}, of object 1 {near[1]:.4f}")
+    if samples.shape != (PIXEL_REPEATS * PIXEL_SAMPLES, 4) or not np.isfinite(samples).all() \
+            or got != zero or gather != -(-PIXEL_REPEATS // 1000) or not abs(h0 + h1 - 1.0) <= 1e-6:
+        raise AssertionError(f"pixel draws: shape {samples.shape}, launches {got}, gather {gather}, "
+                             f"h {h0}, {h1}")
+    if plots:
+        pixel_dist.plot_pixel_histograms(toy_run, samples, h0, h1, 0)
+    summary["pixel_dist"] = dict(seconds=secs, h=[h0, h1], near=near)
+    del ttr, samples
+
+    # -- 12e. cli fidelity: the sinograms on C --------------------------------
+    fid_out = os.path.join(tmp, "fidelity")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["fidelity", "-n", str(FIDELITY_N), "--out", fid_out])
+    wall = time.perf_counter() - t0
+    got, expected = dict(jr.LAUNCHES), {**zero, "joseph_fwd_static": -(-FIDELITY_N // 25)}
+    with open(os.path.join(fid_out, "fidelity.json")) as f:
+        fid = json.load(f)
+    with open(os.path.join(REPO, "results", "fidelity", "fidelity.json")) as f:
+        fid_ref = json.load(f)
+    ours = fid["recon"]["noisy_operating_point"]["psnr_median"]
+    theirs = fid_ref["recon"]["noisy_operating_point"]["psnr_median"]
+    log(f"[eval] 12e cli fidelity -n {FIDELITY_N} in {wall:.2f} s: launches {got} (expected {expected}: C "
+        f"once per chunk of 25); noisy median PSNR {ours:.3f} dB, noiseless {fid['recon']['noiseless_floor']['psnr_median']:.3f} "
+        f"dB; results/fidelity/fidelity.json (n = {fid_ref['recon']['num']}, the JAX package): {theirs:.3f} dB "
+        f"(within {FIDELITY_DB} dB); packer saturation {fid['porosity']['saturation']:.4f}")
+    if rc != 0 or got != expected or not abs(ours - theirs) <= FIDELITY_DB:
+        raise AssertionError(f"fidelity returned {rc}, launches {got}, noisy median PSNR {ours:.2f} dB")
+    theta180 = tuple(float(t) for t in np.linspace(0, np.pi, 180, endpoint=False).astype(np.float32))
+    table184 = jr.static_table(theta180, 184, 184, dev)
+    x25 = torch.rand((25, 184, 184), generator=gen, device=dev)
+    rec = check_kernel("C fidelity", lambda x: jr.radon_static(x, theta180, 184),
+                       lambda x: jr.radon_fused_plain(x, table184, 184), x25, table184, 184, 184)
+    records["joseph_fwd_static"]["fidelity"] = dict(rec, launches=got["joseph_fwd_static"])
+    summary["fidelity"] = dict(seconds=wall, noisy_psnr_median=ours)
+
+    # -- 12f. box-plot tables and dataset panels -------------------------------
+    merits = boxplot.load_merits([run, srun])
+    table5 = boxplot.five_condition_table(merits, merits)
+    medians = boxplot.median_trials(table5)
+    _, labels, lines = boxplot.box_plot_table([run, srun])
+    panels_ds = dataset_viz.dataset_panels(data, run, None, 0, cfg.num_sparse_angles)
+    log(f"[eval] 12f the two merit runs as two trials, each its own uniform pair (no uniform-mask runs "
+        f"here): five-condition table {table5.shape}, median trials {({k: v.tolist() for k, v in medians.items()})} "
+        f"(none for an even count); three-condition: {' | '.join(lines)}; dataset panels "
+        f"{ {k: v[0].shape for k, v in panels_ds.items()} }")
+    if table5.shape != (2, 5, 3) or any(len(v) for v in medians.values()) or len(labels) != 3 \
+            or panels_ds["ground_truth"][0].shape != (n_det, n_det):
+        raise AssertionError("box-plot tables or dataset panels")
+    if plots:
+        boxplot.make_box_plots([run, srun], os.path.join(tmp, "boxplot"))
+        dataset_viz.visualize_dataset(data, run, None, 0, cfg.num_sparse_angles,
+                                      out_dir=os.path.join(tmp, "dataset_viz"))
+        log("[eval] PNGs written (matplotlib is installed)")
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"[eval] ok in {summary['seconds']:.1f} s")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1614,6 +1850,9 @@ def main() -> int:
         if not os.path.exists(os.path.join(train_run, "training_checkpoints",
                                            f"ckpt-{100000 + TRAIN_STEPS}.msgpack")):
             raise AssertionError("no checkpoint at the last step")
+        # the run as training left it, for phase 12 (the step check below
+        # rewrites its caches for its 10 examples)
+        shutil.copytree(train_run, os.path.join(tmp, "merit_run"), symlinks=True)
         psnr_train = mean_psnr(truth, recon[..., 0])
         setup_min = float(np.load(os.path.join(train_run, "setup_time.npy")))
         train_min = float(np.load(os.path.join(train_run, "training_time.npy")))
@@ -1642,6 +1881,7 @@ def main() -> int:
         toy_launches, gather_calls = dict(joseph_radon.LAUNCHES), radon.CALLS["radon"]
         if rc != 0:
             raise AssertionError(f"cli train (toy) returned {rc}")
+        shutil.copytree(toy_run, os.path.join(tmp, "toy_eval_run"), symlinks=True)  # for phase 12
         expected_gather = TOY_STEPS + len(toy_sinos) // toy_cfg.batch_size  # + final evaluation
         log(f"[gather] toy recipe (configs/toy.yaml, {len(toy_sinos)} sinograms, "
             f"{len(toy_theta)} angles x {toy_sinos.shape[-1]} pixels, cut to {TOY_STEPS} of "
@@ -1720,13 +1960,16 @@ def main() -> int:
         log("[probe] ok")
 
         # -- 9. the stretch recipe: make-data, train, A-D, FBP and gridrec -----
-        phase_stretch(dev, smi, records)
+        phase_stretch(dev, smi, records, keep=tmp)
 
         # -- 10. the training options ------------------------------------------
         phase_options(dev, smi)
 
         # -- 11. exact-posterior MCMC on phases 5 and 6's runs ----------------
         log(f"[mcmc] summary {json.dumps(phase_mcmc(dev, smi, records, train_run, data, toy_run, truth))}")
+
+        # -- 12. the evaluation stage on phases 5, 6 and 9's runs -------------
+        log(f"[eval] summary {json.dumps(phase_eval(dev, smi, records, tmp, data))}")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     meta = {  # A and B run on C's and D's kernels
         "joseph_fwd": ("csrc/joseph_fwd_static.cu", "ct_pvae_tpu/ops/pallas_radon.py:455"),

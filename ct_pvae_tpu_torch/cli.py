@@ -4,17 +4,26 @@
   python -m ct_pvae_tpu_torch.cli train --input_path DS --save_path RUN --train ...
   python -m ct_pvae_tpu_torch.cli infer --run_path RUN --output OUT --cheap_init
   python -m ct_pvae_tpu_torch.cli mcmc --model foam --save_path RUN --chains 8
+  python -m ct_pvae_tpu_torch.cli merit --input_path DS --save_path RUN --pnm 1e4
+  python -m ct_pvae_tpu_torch.cli visualize --input_path DS --save_path RUN --en 0
+  python -m ct_pvae_tpu_torch.cli boxplot --save_paths RUN1 RUN2 ...
 
-``make-data`` (cli.py:144-180), ``train`` (cli.py:27-212), ``infer``
-(cli.py:252-298) and ``mcmc`` (cli.py:303-357) take the JAX package's flags
-and dests, plus ``--device``; they run on the GPU unless ``--device cpu`` is
-given.  ``--config`` takes a
-run's ``config.json`` or a YAML recipe such as ``configs/toy.yaml``.
+``make-data`` (cli.py:144-180), ``train`` (cli.py:27-212), ``merit``
+(cli.py:214-249), ``infer`` (cli.py:252-298), ``mcmc`` (cli.py:303-357),
+``visualize`` (cli.py:357-362) and ``fidelity`` (cli.py:385-396) take the
+JAX package's flags and dests, plus ``--device``; they run on the GPU
+unless ``--device cpu`` is given.  ``visualize-dataset`` (cli.py:365-382)
+and ``boxplot`` (cli.py:400-412) take the JAX package's flags and run on
+the host only.  ``--config`` takes a run's ``config.json`` or a YAML recipe
+such as ``configs/toy.yaml``.  Figures need matplotlib, which raises an
+``ImportError`` naming it where it is missing.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 from typing import Optional
 
@@ -116,15 +125,21 @@ def cmd_make_data(argv) -> int:
     p.add_argument("--save-path", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--h5-dir", default=None,
-                   help="real .h5 scans: not ported yet (ROADMAP Queue 1 item 5, data/real.py)")
-    p.add_argument("--slices", default=argparse.SUPPRESS,
-                   help="z slices per .h5 scan (default 'middle'): not ported yet, as --h5-dir")
+                   help="ingest real .h5 scans from this directory instead of synthesizing "
+                   "images (host only; needs h5py)")
+    p.add_argument("--slices", default="middle",
+                   help="z slices per .h5 scan: 'middle', 'all', or an int count of evenly "
+                   "spaced slices, each one training example")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = p.parse_args(argv)
-    if args.h5_dir is not None or "slices" in vars(args):
-        raise NotImplementedError(
-            "--h5-dir / --slices (real-data ingest, data/real.py) are not ported yet "
-            "(ROADMAP Queue 1 item 5)")
+    if args.h5_dir is not None:
+        from .data.real import preformat_h5
+
+        save = args.save_path or "dataset_real"
+        sinos, _ = preformat_h5(args.h5_dir, save, slices=args.slices)
+        print(f"Shape of sinograms: {sinos.shape}")
+        print(f"Saved under {save}/  (train with --real)")
+        return 0
     from .data.sinogram import make_dataset
 
     save = args.save_path or (
@@ -160,13 +175,49 @@ def _parse_train_cfg(argv, prog: str):
 def cmd_train(argv) -> int:
     """Train a P-VAE (and run the final evaluation) on the GPU by default."""
     cfg, device = _parse_train_cfg(argv, "train")
-    for flag in ("visualize", "pixel_dist"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP Queue 1, eval)")
     from .vi.train import run
 
     loss_final_mean = run(cfg, device=device)
     print(f"Average loss final : {loss_final_mean}")
+    if cfg.visualize:
+        from .eval.visualize import visualize_run
+
+        visualize_run(cfg, device=device)
+    if cfg.pixel_dist:
+        from .eval.pixel_dist import pixel_dist_run
+
+        pixel_dist_run(cfg, device=device)
+    return 0
+
+
+def cmd_merit(argv) -> int:
+    """Dataset merit of a trained run: the classical reconstructions of the
+    noisy full and partial sinograms and the P-VAE's, against the truth."""
+    p = argparse.ArgumentParser(prog="merit", description=cmd_merit.__doc__)
+    p.add_argument("--input_path", required=True)
+    p.add_argument("--save_path", required=True)
+    p.add_argument("--pnm", type=float, dest="poisson_noise_multiplier", required=True)
+    p.add_argument("--baseline_alg", choices=["fbp", "gridrec", "gridrec_fourier"], default="fbp",
+                   help="classical recon of the full/partial rows: ramp FBP, or Fourier "
+                   "regridding ('gridrec_fourier' is its alias), saved to "
+                   "final_ave_merit_gridrec.npy")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    args = p.parse_args(argv)
+    from .data import io as data_io
+    from .eval.merit import final_merit
+
+    baseline = "gridrec" if args.baseline_alg == "gridrec_fourier" else args.baseline_alg
+    sinos, theta, _ = data_io.load_dataset(args.input_path)
+    gt = data_io.load_ground_truth(args.input_path)
+    run = lambda name: os.path.join(args.save_path, name)
+    mean_path = run("reconstruction_mean.npy")
+    rec_mean = np.load(mean_path) if os.path.exists(mean_path) else None
+    final_merit(
+        gt, sinos, np.load(run("all_masks.npy")), np.load(run("all_proj_samples.npy")),
+        np.load(run("reconstruction_final.npy")), theta, args.poisson_noise_multiplier,
+        save_path=args.save_path, reconstruction_mean=rec_mean, baseline_alg=baseline,
+        device=args.device,
+    )
     return 0
 
 
@@ -276,7 +327,76 @@ def cmd_mcmc(argv) -> int:
     return 0
 
 
-COMMANDS = {"make-data": cmd_make_data, "train": cmd_train, "infer": cmd_infer, "mcmc": cmd_mcmc}
+def cmd_visualize(argv) -> int:
+    """Panels and metrics of one example of a trained run (the train flags)."""
+    cfg, device = _parse_train_cfg(argv, "visualize")
+    from .eval.visualize import visualize_run
+
+    visualize_run(cfg, device=device)
+    return 0
+
+
+def cmd_visualize_dataset(argv) -> int:
+    """Full vs partial-random vs partial-uniform sinogram and the padded
+    ground truth of one example (reference bin/visualize_dataset.py)."""
+    p = argparse.ArgumentParser(prog="visualize-dataset", description=cmd_visualize_dataset.__doc__)
+    p.add_argument("--en", type=int, dest="example_num", default=0)
+    p.add_argument("--input_path", default="dataset_foam")
+    p.add_argument("--save_path_random", default=None)
+    p.add_argument("--save_path_uniform", default=None)
+    p.add_argument("--nsa", type=int, dest="num_sparse_angles", default=20,
+                   help="undoes the 1/nsa dose normalization on partials")
+    p.add_argument("--out", dest="out_dir", default=None)
+    args = p.parse_args(argv)
+    from .eval.dataset_viz import visualize_dataset
+
+    for name, path in visualize_dataset(**vars(args)).items():
+        print(name, path)
+    return 0
+
+
+def cmd_fidelity(argv) -> int:
+    """Foam packer porosity curve and full-sinogram FBP metric distributions."""
+    p = argparse.ArgumentParser(prog="fidelity", description=cmd_fidelity.__doc__)
+    p.add_argument("-n", type=int, dest="num", default=100)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", dest="out_dir", default="fidelity_out")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    args = p.parse_args(argv)
+    from .eval.fidelity import fidelity_report
+
+    print(json.dumps(fidelity_report(args.out_dir, num=args.num, seed=args.seed, device=args.device),
+                     indent=1))
+    return 0
+
+
+def cmd_boxplot(argv) -> int:
+    """Box plots of final_ave_merit over trials (5 conditions with
+    ``<run>_uniform`` siblings, else 3)."""
+    p = argparse.ArgumentParser(prog="boxplot", description=cmd_boxplot.__doc__)
+    p.add_argument("--save_paths", nargs="+", required=True, help="random-mask run dirs (trials)")
+    p.add_argument("--uniform_paths", nargs="+", default=None,
+                   help="paired uniform-mask run dirs; defaults to <save_path>_uniform siblings "
+                   "when they all exist")
+    p.add_argument("--out", default=".")
+    args = p.parse_args(argv)
+    from .eval.boxplot import make_box_plots
+
+    make_box_plots(args.save_paths, args.out, uniform_paths=args.uniform_paths)
+    return 0
+
+
+COMMANDS = {
+    "make-data": cmd_make_data,
+    "train": cmd_train,
+    "infer": cmd_infer,
+    "mcmc": cmd_mcmc,
+    "merit": cmd_merit,
+    "visualize": cmd_visualize,
+    "visualize-dataset": cmd_visualize_dataset,
+    "fidelity": cmd_fidelity,
+    "boxplot": cmd_boxplot,
+}
 
 
 def main(argv: Optional[list] = None) -> int:

@@ -61,12 +61,16 @@ def ssim(a: np.ndarray, b: np.ndarray, data_range: float, win_size: int = None) 
     return float(s.mean())
 
 
-def compare(recon0: np.ndarray, recon1: np.ndarray) -> Tuple[float, float, float]:
-    """(MSE, SSIM, PSNR), the data range recon0.max() - recon0.min()."""
+def compare(recon0: np.ndarray, recon1: np.ndarray, verbose: bool = False) -> Tuple[float, float, float]:
+    """(MSE, SSIM, PSNR), the data range recon0.max() - recon0.min();
+    ``verbose`` prints them as the reference does."""
     recon0 = np.asarray(recon0)
     recon1 = np.asarray(recon1)
     data_range = float(recon0.max() - recon0.min())
-    return mse(recon0, recon1), ssim(recon0, recon1, data_range), psnr(recon0, recon1, data_range)
+    m, s, p = mse(recon0, recon1), ssim(recon0, recon1, data_range), psnr(recon0, recon1, data_range)
+    if verbose:
+        print(f"MSE: {m:.8f}, SSIM: {s:.3f}, PSNR: {p:.3f}")
+    return m, s, p
 
 
 def mean_psnr(truth: np.ndarray, recon: np.ndarray) -> float:

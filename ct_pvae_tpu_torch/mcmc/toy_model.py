@@ -4,13 +4,15 @@
 A Dirichlet-mixture prior over the 4-simplex times a true-Poisson
 likelihood of the masked measurements through the gather projector
 (reference ctvae/toy_mcmc_v2_functions.py:30-98), sampled in unconstrained
-R^3 through ``IteratedSigmoidCentered``. Every function takes a batch of
-chains: ``(C, 4)`` simplex points or ``(C, 3)`` unconstrained ones.
+R^3 through ``IteratedSigmoidCentered``. Every sampler target takes a batch
+of chains: ``(C, 4)`` simplex points or ``(C, 3)`` unconstrained ones.
+``analytic_discrete_posterior`` is the exact two-object posterior of the
+discrete toy dataset, which ``eval/pixel_dist.py`` draws beside the VAE's.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
@@ -64,3 +66,23 @@ def toy_posterior_sampler(
         return joint(o) + log_det
 
     return log_prob
+
+
+def analytic_discrete_posterior(
+    proj_sample: torch.Tensor,   # (A, P) the noisy masked measurement
+    mask: torch.Tensor,          # (A,)
+    sinogram_0: torch.Tensor,    # (A, P) clean sinogram of object 0
+    sinogram_1: torch.Tensor,    # (A, P) clean sinogram of object 1
+    poisson_noise_multiplier: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """P(O_i | M) of the two discrete toy objects under equal priors: the
+    softmax of their Poisson log-likelihoods (toy_model.py:61-87; the
+    reference's ratio of log-likelihoods with hard-coded object indices,
+    main_ct_vae.py:689-705, is not kept)."""
+    counts = proj_sample * poisson_noise_multiplier
+
+    def loglik(sino: torch.Tensor) -> torch.Tensor:
+        return Poisson(sino * mask[:, None] * poisson_noise_multiplier).log_prob(counts).sum()
+
+    post = torch.softmax(torch.stack([loglik(sinogram_0), loglik(sinogram_1)]), dim=0)
+    return post[0], post[1]

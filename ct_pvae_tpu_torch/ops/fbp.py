@@ -7,11 +7,12 @@ classical uniform pi/(2A) angle weight or the Voronoi angle weights
 
 The backprojection is routed as the JAX package routes it
 (``_backproject_any``, fbp.py:25-47): a square reconstruction from a
-detector of 512 pixels or more goes to the static Joseph adjoint
-(``backproject_static``, kernel D) on the card, where the JAX package takes
-its Pallas adjoint on a TPU; everything else, and every CPU tensor, goes to
-the pixel-driven gather ``backproject`` of ``radon.py``, as the JAX package
-does off the TPU.
+detector of 512 pixels or more, at one (A,) angle set shared by the batch,
+goes to the static Joseph adjoint (``backproject_static``, kernel D) on the
+card, where the JAX package takes its Pallas adjoint on a TPU; per-example
+angles (an (N, A) theta, which the JAX package meets as traced angles under
+``vmap``), everything else and every CPU tensor go to the pixel-driven
+gather ``backproject`` of ``radon.py``, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
@@ -28,11 +29,18 @@ FILTERS = ("ramp", "ramlak", "shepp", "shepp-logan", "cosine", "hamming", "hann"
 KERNEL_DETECTOR = 512  # detectors from this size on take kernel D on the card
 
 
+def kernel_d_route(theta, n_det: int, x_size: int, y_size: int, device: torch.device) -> bool:
+    """Whether the backprojection takes kernel D: a square output from a
+    detector of ``KERNEL_DETECTOR`` pixels or more on the card, at one (A,)
+    angle set (D backprojects its whole batch through one angle set, so
+    per-example (..., A) angles take the gather route)."""
+    return (device.type == "cuda" and n_det >= KERNEL_DETECTOR and x_size == y_size
+            and torch.as_tensor(theta).dim() == 1)
+
+
 def _backproject_any(filtered: torch.Tensor, theta, x_size: int, y_size: int) -> torch.Tensor:
-    """Kernel D for a square output from a detector of ``KERNEL_DETECTOR``
-    pixels or more on a CUDA tensor; the gather ``backproject`` otherwise."""
-    p = filtered.shape[-1]
-    if p >= KERNEL_DETECTOR and x_size == y_size and filtered.device.type == "cuda":
+    """Kernel D where ``kernel_d_route`` says so, the gather ``backproject`` otherwise."""
+    if kernel_d_route(theta, filtered.shape[-1], x_size, y_size, filtered.device):
         theta_t = tuple(float(t) for t in np.asarray(torch.as_tensor(theta).cpu(), np.float32))
         flat = filtered.reshape((-1,) + filtered.shape[-2:]).float()
         out = backproject_static(flat, theta_t, x_size, y_size)
@@ -105,7 +113,8 @@ def fbp(
     filter_name: str = "ramp",
     angle_weights: str = "uniform",
 ) -> torch.Tensor:
-    """Filtered back-projection, (..., A, P) -> (..., x_size, y_size).
+    """Filtered back-projection, (..., A, P) -> (..., x_size, y_size), at
+    (A,) angles in radians or per-example (..., A) ones.
 
     ``angle_weights``: 'uniform', the classical pi/(2A) (reference
     fbp_tensorflow.py:74), or 'voronoi' (``voronoi_angle_weights``, halved),

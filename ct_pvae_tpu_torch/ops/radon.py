@@ -185,7 +185,10 @@ def backproject(
     t = Y cos(theta) - X sin(theta) + c_t with clamped edges, and sums over
     angles.  Angles are taken ``angle_chunk`` at a time (summed within a
     chunk, then across chunks, as the reference's scan does), which bounds
-    the live (B, chunk, X, Y) gather.
+    the live (B, chunk, X, Y) gather.  ``theta`` is (A,), shared by every
+    sinogram, or (..., A), one angle set per sinogram (the JAX package's
+    ``vmap`` over per-example angles): each sinogram then backprojects
+    through its own angles, as a loop over the examples would.
     """
     a, p = sinogram.shape[-2], sinogram.shape[-1]
     batch_shape = sinogram.shape[:-2]
@@ -193,6 +196,11 @@ def backproject(
     b = sino.shape[0]
     dev = sino.device
     theta = torch.as_tensor(theta, dtype=torch.float32, device=dev)
+    if theta.dim() > 1:
+        if tuple(theta.shape) != tuple(batch_shape) + (a,):
+            raise ValueError(f"per-example theta {tuple(theta.shape)} does not match sinograms "
+                             f"{tuple(sinogram.shape)}")
+        theta = theta.reshape(b, a)
 
     cx = (x_size - 1) / 2.0
     cy = (y_size - 1) / 2.0
@@ -203,15 +211,16 @@ def backproject(
     chunk = max(1, min(int(angle_chunk), a))
     out = torch.zeros((b, x_size, y_size), dtype=torch.float32, device=dev)
     for a0 in range(0, a, chunk):
-        th = theta[a0 : a0 + chunk]
+        th = theta[..., a0 : a0 + chunk]                       # (c,) or (B, c)
+        c = th.shape[-1]
         sino_c = sino[:, a0 : a0 + chunk]                      # (B, c, P)
-        cos = torch.cos(th)[:, None, None]
-        sin = torch.sin(th)[:, None, None]
-        t = yg[None] * cos - xg[None] * sin + ct               # (c, X, Y)
+        cos = torch.cos(th)[..., None, None]
+        sin = torch.sin(th)[..., None, None]
+        t = yg * cos - xg * sin + ct                           # (c, X, Y) or (B, c, X, Y)
         t0 = torch.floor(t)
-        wt = (t - t0).reshape(1, len(th), -1)
-        i0 = t0.clamp(0, p - 1).long().reshape(1, len(th), -1).expand(b, -1, -1)
-        i1 = (t0 + 1).clamp(0, p - 1).long().reshape(1, len(th), -1).expand(b, -1, -1)
+        wt = (t - t0).reshape(-1, c, x_size * y_size)
+        i0 = t0.clamp(0, p - 1).long().reshape(-1, c, x_size * y_size).expand(b, -1, -1)
+        i1 = (t0 + 1).clamp(0, p - 1).long().reshape(-1, c, x_size * y_size).expand(b, -1, -1)
         v0 = torch.gather(sino_c, 2, i0)
         v1 = torch.gather(sino_c, 2, i1)
         v = v0 * (1 - wt) + v1 * wt                            # (B, c, X*Y)

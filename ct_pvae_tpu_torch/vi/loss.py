@@ -136,6 +136,9 @@ class ElboAux(NamedTuple):
     log_prob_R_given_z: torch.Tensor  # scalar, negative-entropy term of the last sample
     recon_sample: torch.Tensor        # (B, x, y), the last sample
     recon_mean: torch.Tensor          # (B, x, y), output mean averaged over samples
+    # the last sample's output distribution parameters, each (B, x, y, 1):
+    # TruncatedNormal loc and scale, or Beta concentrations
+    recon_params: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def physics_log_likelihood(
@@ -207,12 +210,13 @@ def elbo_loss(
                 qa, qb = _repeat(q.a, s), _repeat(q.b, s)
                 latents.append(Beta(qa, qb).sample(src.log_gamma(qa), src.log_gamma(qb)))
     alpha, beta_p = decoder(latents, keep=keep)
+    out_params = (positive_range(alpha), positive_range(beta_p))
     if use_normal:
-        out_dist = TruncatedNormal(positive_range(alpha), positive_range(beta_p), 0.0, 1e10)
+        out_dist = TruncatedNormal(*out_params, 0.0, 1e10)
         out_sample = out_dist.sample(src.out_uniforms(alpha.shape))
         lp_out = out_dist.log_prob(out_sample)
     else:
-        out_dist = Beta(positive_range(alpha), positive_range(beta_p))
+        out_dist = Beta(*out_params)
         out_sample = out_dist.sample(src.log_gamma(out_dist.a), src.log_gamma(out_dist.b))
         lp_out = out_dist.log_prob(torch.clamp(out_sample, EPS, 1.0 - EPS))
     lp_selfs = lp_out.reshape(s, -1).sum(dim=1)
@@ -246,4 +250,5 @@ def elbo_loss(
         log_prob_R_given_z=lp_selfs[-1],
         recon_sample=recons[-1],
         recon_mean=recon_means.mean(dim=0),
+        recon_params=tuple(t.reshape((s, b) + t.shape[1:])[-1] for t in out_params),
     )

@@ -80,7 +80,8 @@ class Server:
             self.x_size = self.y_size = int(np.floor(self.n_det / np.sqrt(2) - 2))
         if cfg.save_path:
             os.makedirs(cfg.save_path, exist_ok=True)
-            cfg.save(os.path.join(cfg.save_path, "config.json"))
+            if cfg.train:  # an evaluation of a run keeps the run's config (train.py:103-107)
+                cfg.save(os.path.join(cfg.save_path, "config.json"))
 
         # an evaluation-only run (train False) reads the run's artifacts, as the
         # JAX package's create_all_masks / classical_recon_stack do
@@ -101,6 +102,8 @@ class Server:
             proj, masks, self.theta, cfg.algorithms, self.x_size, self.y_size, device,
             save_path=cfg.save_path, reuse_cache=reuse, cheap_init=cfg.cheap_init,
         )
+        # host copies, as the JAX Trainer keeps them (the eval stage reads them)
+        self.x_train_sinograms, self.all_masks, self.all_proj_samples = sinograms, masks, proj
         self.data = {
             "proj_sample": torch.as_tensor(proj, device=device),
             "mask": torch.as_tensor(masks, device=device),

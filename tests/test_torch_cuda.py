@@ -624,3 +624,71 @@ def test_curvature_on_both_routes_on_the_card(cuda, use_pallas):
     want = im.estimate_curvature_diag(x.mean(0).cpu(), *args, use_pallas=use_pallas, probes=probes.cpu())
     assert torch.isfinite(got).all() and (got > 0).all()
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-6 * float(want.abs().max()))
+
+
+# The evaluation stage's new launch shapes and routes.
+
+
+def test_fbp_with_per_example_angles_takes_the_gather_route(cuda):
+    """merit's partial-sinogram row at the stretch detector: an (N, nsa)
+    theta backprojects each sinogram through its own angles on the gather
+    route (kernel D takes one angle set), equal to a loop over the examples."""
+    from ct_pvae_tpu_torch.ops.fbp import fbp
+
+    rng = np.random.default_rng(20)
+    sino = torch.as_tensor(rng.uniform(0, 1, (3, 20, 728)).astype(np.float32), device=cuda)
+    theta = torch.as_tensor(np.sort(rng.choice(_STRETCH_THETA, (3, 20)), axis=1), device=cuda)
+    before = dict(jr.LAUNCHES)
+    out = fbp(sino, theta, 728, 728)
+    loop = torch.stack([fbp(sino[i:i + 1], theta[i:i + 1], 728, 728)[0] for i in range(3)])
+    torch.cuda.synchronize()
+    assert jr.LAUNCHES == before  # no D launch for either
+    assert out.shape == (3, 728, 728)
+    torch.testing.assert_close(out, loop, rtol=0, atol=0)
+
+
+def test_merit_rows_on_the_card_at_the_stretch_shape(cuda, monkeypatch):
+    """merit_recons at 728 bins, 360 angles onto 512^2 (noise off): row 0
+    through kernel D (one launch), equal to the ramp filter and D's plain
+    version, cropped and clipped; row 1 on the gather route (no launch),
+    equal to a loop of fbp over the examples."""
+    from ct_pvae_tpu_torch.data.recon_init import crop_center
+    from ct_pvae_tpu_torch.eval import merit
+    from ct_pvae_tpu_torch.ops.fbp import fbp, filter_sinogram
+
+    monkeypatch.setattr(merit, "poisson_measurements", lambda x, pnm, gen: x)
+    rng = np.random.default_rng(21)
+    sinos = rng.uniform(0, 20, (2, 360, 728)).astype(np.float32)
+    masks = np.zeros((2, 360), np.float32)
+    for i in range(2):
+        masks[i, rng.permutation(360)[:20]] = 1.0 / 20
+    proj = sinos * masks[:, :, None]
+    before = dict(jr.LAUNCHES)
+    recon0, recon1 = merit.merit_recons(sinos, masks, proj, _STRETCH_THETA, 1e4, 512, 512, device=cuda)
+    assert jr.LAUNCHES == {**before, "joseph_adj_static": before["joseph_adj_static"] + 1}
+    s = torch.as_tensor(sinos, device=cuda)
+    table = jr.static_table(tuple(float(t) for t in _STRETCH_THETA), 728, 728, cuda)
+    plain = jr.radon_fused_adjoint_plain(filter_sinogram(s), table, 728) * (np.pi / (2 * 360))
+    want0 = torch.as_tensor(np.clip(crop_center(plain.cpu().numpy(), 512, 512), 0, 1))
+    _close(torch.as_tensor(recon0), want0)
+    used, theta_used = merit.measured_angles(masks, proj, _STRETCH_THETA)
+    loop = torch.stack([fbp(torch.as_tensor(used[i:i + 1], device=cuda),
+                            torch.as_tensor(theta_used[i:i + 1], device=cuda), 728, 728)[0]
+                        for i in range(2)]).cpu().numpy()
+    np.testing.assert_allclose(recon1, np.clip(crop_center(loop, 512, 512), 0, 1), rtol=0, atol=1e-6)
+
+
+def test_kernel_c_at_the_fidelity_batch(cuda):
+    """fidelity's sinograms, chunks of 25 foams at (25, 184, 184) x 180 on
+    kernel C (one launch a chunk), against C's plain version."""
+    from ct_pvae_tpu_torch.data.sinogram import images_to_sinograms
+    from ct_pvae_tpu_torch.ops.radon import pad_phantom
+
+    rng = np.random.default_rng(25)
+    imgs = rng.uniform(0, 1, (25, 128, 128)).astype(np.float32)
+    before = jr.LAUNCHES["joseph_fwd_static"]
+    out = images_to_sinograms(imgs, _THETA, pad=True, batch=25, device=cuda)
+    assert jr.LAUNCHES["joseph_fwd_static"] == before + 1
+    padded = pad_phantom(torch.as_tensor(imgs, device=cuda), 184)
+    want = jr.radon_fused_plain(padded, jr.static_table(tuple(float(t) for t in _THETA), 184, 184, cuda), 184)
+    _close(torch.as_tensor(out, device=cuda), want.clamp_min(0.0))

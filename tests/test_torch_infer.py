@@ -147,7 +147,8 @@ def _port_sources():
 def test_port_imports_nothing_of_jax():
     """No port module or chip_smoke.py imports jax, flax, optax, msgpack, yaml
     or the JAX package, the training slice's modules and the gather route,
-    kernel E and its probe, and the MCMC slice's samplers and runs included."""
+    kernel E and its probe, the MCMC slice's samplers and runs, and the eval
+    stage's modules included."""
     offenders, scanned = [], set()
     for path in _port_sources():
         scanned.add(os.path.relpath(path, REPO))
@@ -170,6 +171,8 @@ def test_port_imports_nothing_of_jax():
                    "utils/yaml_subset.py", "ops/gridrec.py", "data/foam.py", "data/toy.py",
                    "data/sinogram.py", "vi/augment.py", "mcmc/hmc.py", "mcmc/nuts.py", "mcmc/smc.py",
                    "mcmc/draws.py", "mcmc/diagnostics.py", "mcmc/toy_model.py", "mcmc/image_model.py",
-                   "prob/bijectors.py", "eval/mcmc_run.py", "eval/metrics.py"):
+                   "prob/bijectors.py", "eval/mcmc_run.py", "eval/metrics.py", "eval/merit.py",
+                   "eval/visualize.py", "eval/pixel_dist.py", "eval/fidelity.py",
+                   "eval/dataset_viz.py", "eval/boxplot.py", "eval/plots.py", "data/real.py"):
         assert os.path.join("ct_pvae_tpu_torch", module) in scanned, module
     assert num_proj_pixels(128, 128) == 184  # the foam geometry the port serves
