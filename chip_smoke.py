@@ -1091,8 +1091,9 @@ def phase_options(dev, smi: str) -> dict:
     losses, params, launch counts, and each one's device ms with the host
     held out, wall ms and steps/s; ``scripts/step_cost.py``, whose train
     rows include the graphed step.  Then each option trained from scratch at
-    paper width through ``cli train`` (graphed chunks but under
-    ``profile_steps``): finite losses, a checkpoint, A and B launches; from
+    paper width through ``cli train`` (graphed chunks, cut where
+    ``profile_steps``' trace starts and ends): finite losses, a checkpoint,
+    A and B launches; from
     its checkpoint one chunk of 8 replays against the same 8 eager steps
     under cuDNN's deterministic algorithms; one step against the CPU path
     (bfloat16 also under its own distance from float32, step and blocks);

@@ -31,6 +31,7 @@ from ..ops.gridrec import gridrec
 from ..ops.joseph_radon import backproject_static, radon_static
 from ..ops.sirt import sirt_with_ops
 from ..ops.tv import tv_with_ops
+from ..utils.trace import span
 from .io import save_npy_atomic
 
 _EPS = float(np.finfo(np.float32).eps)
@@ -117,11 +118,17 @@ def classical_recon_stack(
     outs = []
     for i in range(0, n, batch):
         sino_b, mask_b = unnorm[i : i + batch], mask_expand[i : i + batch]
-        chans = [_recon(alg, sino_b.contiguous(), theta_t, theta_f, size) for alg in algorithms]
-        chans.append(fbp(mask_b, theta_t, size, size, "none"))
-        outs.append(torch.stack(chans, dim=1).cpu().numpy())  # (B, C, size, size)
-    stack = crop_center(np.concatenate(outs, axis=0), x_size, y_size)
-    stack = np.ascontiguousarray(np.moveaxis(stack, 1, -1), dtype=np.float32)
+        chans = []
+        for alg in algorithms:
+            with span(f"ctpvae.setup.init_stack.{alg}"):
+                chans.append(_recon(alg, sino_b.contiguous(), theta_t, theta_f, size))
+        with span("ctpvae.setup.init_stack.mask"):
+            chans.append(fbp(mask_b, theta_t, size, size, "none"))
+        with span("ctpvae.setup.init_stack.readback"):
+            outs.append(torch.stack(chans, dim=1).cpu().numpy())  # (B, C, size, size)
+    with span("ctpvae.setup.init_stack.assemble"):
+        stack = crop_center(np.concatenate(outs, axis=0), x_size, y_size)
+        stack = np.ascontiguousarray(np.moveaxis(stack, 1, -1), dtype=np.float32)
 
     if save_path is not None and write_cache:  # rank 0 writes, atomically: other ranks read it
         os.makedirs(save_path, exist_ok=True)

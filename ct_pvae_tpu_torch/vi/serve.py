@@ -7,9 +7,11 @@ deterministic mode, the model options); ``restore`` reads ``params`` (with
 ``log_pnm`` under ``train_pnm``), ``kl_anneal``, ``pnm`` and ``step`` from a
 flax msgpack checkpoint with the same "latest" rule (train.py:655-690);
 ``eval_step`` is the eval branch of the step (train.py:233-402,
-``training=False``) over all angles.  The Poisson multiplier reaches the
-likelihood as a device tensor, ``pnm_base() * anneal_power(step)``: the
-pnm, or exp(log_pnm) under ``train_pnm``, times factor^min(step, num_iter).
+``training=False``) over all angles.  Set-up and restore are timed in
+``ctpvae.setup.*`` spans (``utils/trace.py``).  The Poisson multiplier
+reaches the likelihood as a device tensor, ``pnm_base() *
+anneal_power(step)``: the pnm, or exp(log_pnm) under ``train_pnm``, times
+factor^min(step, num_iter).
 ``vi/train.py`` ``Trainer`` extends it with the train step, Adam and the loop.
 
 The projector is routed as the JAX Trainer routes it (train.py:249-267):
@@ -44,6 +46,7 @@ from ..ops.radon import pad_phantom, radon
 from ..parallel.distributed import all_reduce_, is_initialized, is_primary, make_global_batch
 from ..parallel.mesh import Mesh
 from ..utils.flax_msgpack import load_checkpoint
+from ..utils.trace import span
 from .loss import Draws, DrawSource, ElboAux, elbo_loss
 from .shard import StepShard
 
@@ -103,24 +106,26 @@ class Server:
         # an evaluation-only run (train False) reads the run's artifacts, as the
         # JAX package's create_all_masks / classical_recon_stack do
         reuse = cfg.reuse_cache or not cfg.train
-        masks, proj = create_all_masks(
-            sinograms, self.num_angles, device,
-            save_path=cfg.save_path,
-            poisson_noise_multiplier=cfg.poisson_noise_multiplier,
-            num_sparse_angles=cfg.num_sparse_angles,
-            random=cfg.random_angles,
-            real_data=cfg.real_data,
-            truncate_dataset=cfg.truncate_dataset,
-            toy_masks=cfg.toy_masks,
-            seed=cfg.seed,
-            reuse_cache=reuse,
-            write_cache=is_primary(),
-        )
-        stack = classical_recon_stack(
-            proj, masks, self.theta, cfg.algorithms, self.x_size, self.y_size, device,
-            save_path=cfg.save_path, reuse_cache=reuse, cheap_init=cfg.cheap_init,
-            write_cache=is_primary(),
-        )
+        with span("ctpvae.setup.masks"):
+            masks, proj = create_all_masks(
+                sinograms, self.num_angles, device,
+                save_path=cfg.save_path,
+                poisson_noise_multiplier=cfg.poisson_noise_multiplier,
+                num_sparse_angles=cfg.num_sparse_angles,
+                random=cfg.random_angles,
+                real_data=cfg.real_data,
+                truncate_dataset=cfg.truncate_dataset,
+                toy_masks=cfg.toy_masks,
+                seed=cfg.seed,
+                reuse_cache=reuse,
+                write_cache=is_primary(),
+            )
+        with span("ctpvae.setup.init_stack"):
+            stack = classical_recon_stack(
+                proj, masks, self.theta, cfg.algorithms, self.x_size, self.y_size, device,
+                save_path=cfg.save_path, reuse_cache=reuse, cheap_init=cfg.cheap_init,
+                write_cache=is_primary(),
+            )
         # host copies, as the JAX Trainer keeps them (the eval stage reads them)
         self.x_train_sinograms, self.all_masks, self.all_proj_samples = sinograms, masks, proj
         # the dataset on the device, or in host memory when streamed
@@ -149,11 +154,12 @@ class Server:
         self.log_pnm = (torch.nn.Parameter(torch.log(torch.tensor(np.float32(pnm0), **f32)))
                         if cfg.train_pnm else None)
 
-        self.encoder, self.decoder, self.skip_shapes = build_models(
-            self.x_size, self.y_size, stack.shape[-1], cfg
-        )
-        self.encoder.to(device)
-        self.decoder.to(device)
+        with span("ctpvae.setup.models"):
+            self.encoder, self.decoder, self.skip_shapes = build_models(
+                self.x_size, self.y_size, stack.shape[-1], cfg
+            )
+            self.encoder.to(device)
+            self.decoder.to(device)
 
         # the step's share of this rank on a mesh; sums over the ranks
         # wherever the process group is up (a world of one included)
@@ -176,8 +182,9 @@ class Server:
 
     def restore(self, run_path: str, ckpt_num: Optional[int] = None) -> str:
         """Load params and anneal state from a trained run's checkpoint."""
-        path = latest_checkpoint(run_path, ckpt_num)
-        self.load_state(load_checkpoint(path))
+        with span("ctpvae.setup.restore"):
+            path = latest_checkpoint(run_path, ckpt_num)
+            self.load_state(load_checkpoint(path))
         return path
 
     def load_state(self, ckpt: dict) -> None:

@@ -18,7 +18,9 @@ adds (train.py:76-690):
     ``setup_time.npy`` / ``training_time.npy``, checkpoints at
     ``save_interval`` and at the last step, the ``resume_total`` replay, and
     a ``torch.profiler`` trace of steps [2, 2 + ``profile_steps``) into
-    ``<save_path>/profile`` (1-step chunks, as train.py:466, 488-495);
+    ``<save_path>/profile`` (train.py:488-495; chunks are cut at both ends,
+    so the traced steps run as an untraced run runs them, where the JAX
+    loop traces 1-step chunks);
   * ``final_evaluation`` (the unshuffled eval pass) and flax-msgpack
     ``TrainState`` checkpoints the JAX package reads back.
 
@@ -83,6 +85,7 @@ from ..parallel.mesh import make_mesh
 from ..utils.batching import IndexStream
 from ..utils.flax_msgpack import load_checkpoint, save_checkpoint
 from ..utils.metrics import MetricsLogger
+from ..utils.trace import span
 from .augment import roll_batch
 from .loss import Draws, DrawSource, GeneratorDraws, elbo_loss, standard_draws
 from .serve import Server, latest_checkpoint
@@ -370,9 +373,10 @@ class Trainer(Server):
     def train_step(self, batch_idx, angle_idx, draws: Optional[Union[Draws, DrawSource]] = None
                    ) -> torch.Tensor:
         """One eager step; returns the device row (loss, mean kl, loglik, kl_anneal)."""
-        kl = self._prepare(batch_idx, angle_idx, draws)
-        row = self._slot_step(draws)
-        self._advance(1, kl)
+        with span("ctpvae.train.step"):
+            kl = self._prepare(batch_idx, angle_idx, draws)
+            row = self._slot_step(draws)
+            self._advance(1, kl)
         return row
 
     def capture_step(self) -> StepGraph:
@@ -381,10 +385,11 @@ class Trainer(Server):
         if self.device.type != "cuda":
             raise RuntimeError("CUDA graphs need a CUDA device; the CPU runs the step eagerly")
         if self._graph is None:
-            state = [t for slot in self.slots for t in (slot.param, slot.mu, slot.nu)]
-            graph = StepGraph(self._slot_step, state, self._gen,
-                              [joseph_radon.LAUNCHES, radon.CALLS, distributed.CALLS])
-            graph.capture(draw_seed(self.cfg.seed, "train", self.step))
+            with span("ctpvae.train.capture"):
+                state = [t for slot in self.slots for t in (slot.param, slot.mu, slot.nu)]
+                graph = StepGraph(self._slot_step, state, self._gen,
+                                  [joseph_radon.LAUNCHES, radon.CALLS, distributed.CALLS])
+                graph.capture(draw_seed(self.cfg.seed, "train", self.step))
             self._graph = graph
         return self._graph
 
@@ -397,26 +402,30 @@ class Trainer(Server):
         Draws replacing the trainer's (eager steps only).  Returns the (K, 4)
         device rows."""
         k = len(batch_idxs)
-        floats, kl = self._stage(k)
-        ints = torch.stack([self._step_ints(self.step + j, b, a)
-                            for j, (b, a) in enumerate(zip(batch_idxs, angle_idxs))])
         graphed = self.device.type == "cuda" and self.eager_reason is None
-        if graphed:
-            if draws is not None:
-                raise ValueError("the graphed step draws from its own generator; "
-                                 "replayed Draws need steps_per_call 1")
-            graph = self.capture_step()
-            host_ints = ints
-            ints = ints.pin_memory().to(self.device, non_blocking=True)
-            floats = floats.pin_memory().to(self.device, non_blocking=True)
-        rows = []
-        for j in range(k):
-            self._fill_slots(ints[j], floats[j], host_ints[j] if graphed else None)
-            if draws is None:
-                self._seed(self.step + j)
-            rows.append((graph.replay() if graphed else self._slot_step(draws and draws[j])).clone())
-        self._advance(k, kl)
-        return torch.stack(rows)
+        if graphed and draws is not None:
+            raise ValueError("the graphed step draws from its own generator; "
+                             "replayed Draws need steps_per_call 1")
+        with span("ctpvae.train.chunk"):
+            graph = self.capture_step() if graphed else None
+            with span("ctpvae.train.stage"):
+                floats, kl = self._stage(k)
+                ints = torch.stack([self._step_ints(self.step + j, b, a)
+                                    for j, (b, a) in enumerate(zip(batch_idxs, angle_idxs))])
+                if graphed:
+                    host_ints = ints
+                    ints = ints.pin_memory().to(self.device, non_blocking=True)
+                    floats = floats.pin_memory().to(self.device, non_blocking=True)
+            rows = []
+            for j in range(k):
+                with span("ctpvae.train.replay" if graphed else "ctpvae.train.step"):
+                    self._fill_slots(ints[j], floats[j], host_ints[j] if graphed else None)
+                    if draws is None:
+                        self._seed(self.step + j)
+                    rows.append((graph.replay() if graphed
+                                 else self._slot_step(draws and draws[j])).clone())
+            self._advance(k, kl)
+            return torch.stack(rows)
 
     # ------------------------------------------------------------------
     def train(self) -> None:
@@ -431,9 +440,10 @@ class Trainer(Server):
         flush_every = max(1, cfg.metrics_every)
         latent_shapes, out_shape = self.draw_shapes(cfg.batch_size)
         spc = max(1, int(cfg.steps_per_call))
-        # profiling traces single steps (train.py:466)
-        use_chunks = spc > 1 and not cfg.profile_steps
+        use_chunks = spc > 1
         graphs = use_chunks and self.device.type == "cuda"
+        # the traced steps [2, 2 + profile_steps) begin and end at chunk boundaries
+        profile_cuts = (2, 2 + cfg.profile_steps) if cfg.profile_steps and cfg.save_path else ()
         if graphs and self.eager_reason is not None:
             print(f"steps_per_call {spc}: {self.eager_reason}, so every step runs eagerly")
         elif graphs and self.replay_draws:
@@ -449,8 +459,10 @@ class Trainer(Server):
         start_time = time.time()
         it = 0
         while it < target_iters:
-            if cfg.profile_steps and cfg.save_path:
+            if profile_cuts:
                 if it == 2:  # trace steps [2, 2 + profile_steps), after the warm-up
+                    if graphs and self.eager_reason is None:
+                        self.capture_step()  # outside the trace: it holds replays alone
                     profiler = _start_profile(self.device)
                 elif profiler is not None and it >= 2 + cfg.profile_steps:
                     _stop_profile(profiler, cfg.save_path)
@@ -464,6 +476,9 @@ class Trainer(Server):
                 k = min(spc, target_iters - it)  # no checkpoints: full chunks
             else:
                 k = 1
+            for cut in profile_cuts:
+                if cut > it:
+                    k = min(k, cut - it)
             bidxs = [batch_stream.next() for _ in range(k)]
             aidxs = [angle_stream.next() for _ in range(k)]
             draws = ([self.sampler("train", self.step + j, latent_shapes, out_shape, cfg.num_samples)

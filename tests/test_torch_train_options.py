@@ -497,7 +497,8 @@ def test_cli_trains_each_option(option, dataset, tmp_path, capsys):
 
 
 def test_profile_steps_leaves_a_trace(tmp_path):
-    """profile_steps 2: steps 2 and 3 of 5 traced into <save_path>/profile."""
+    """profile_steps 2: steps 2 and 3 of 5 traced into <save_path>/profile,
+    with the port's spans of the traced steps in it."""
     sinos, theta = _data()
     cfg = Config(**{**KW, "num_iter": 5, "profile_steps": 2, "save_path": str(tmp_path)})
     tr = Trainer(cfg, sinos, theta, CPU)
@@ -506,4 +507,30 @@ def test_profile_steps_leaves_a_trace(tmp_path):
     with open(tmp_path / "profile" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("convolution" in e.get("name", "") for e in events)
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert any(n in ("ctpvae.train.chunk", "ctpvae.train.step") for n in spans)
     assert np.load(tmp_path / "train_loss_vec.npy").shape == (5,)
+
+
+@pytest.mark.parametrize("spc, profile_steps, want", [
+    (4, 4, [1, 1, 4, 4, 1, 1]),  # the traced steps [2, 6): one chunk
+    (4, 2, [1, 1, 1, 1, 4, 4]),  # [2, 4): a part of a chunk, step by step
+    (1, 3, [1] * 12),
+])
+def test_profile_steps_cut_the_chunks(tmp_path, monkeypatch, spc, profile_steps, want):
+    """Chunks are cut where the trace begins and ends (steps 2 and 2 +
+    profile_steps), as at save boundaries: a whole chunk runs through
+    ``train_chunk``, a part of one step by step."""
+    sinos, theta = _data()
+    cfg = Config(**{**KW, "num_iter": 12, "profile_steps": profile_steps, "steps_per_call": spc,
+                    "save_path": str(tmp_path)})
+    tr = Trainer(cfg, sinos, theta, CPU)
+    tr.metrics.save_plots = lambda: None
+    runs = []
+    chunk, step = tr.train_chunk, tr.train_step
+    monkeypatch.setattr(tr, "train_chunk", lambda b, *a: runs.append(len(b)) or chunk(b, *a))
+    monkeypatch.setattr(tr, "train_step", lambda *a: runs.append(1) or step(*a))
+    tr.train()
+    # step 0 alone (a save boundary), then chunks that stop at each cut
+    assert runs == want
+    assert (tmp_path / "profile" / "trace.json").exists()
