@@ -4,11 +4,18 @@ Loads a trained run's ``config.json`` and checkpoint, feeds new sinograms
 through the measurement model and the classical-init stack, and emits
 posterior summaries from ``num_passes`` independent latent draws per batch,
 each an eval-mode ELBO pass with ``cfg.num_samples`` inner samples
-(infer.py:47-152).  Per-batch moments accumulate in float32 on the device
-and are added to float64 host accumulators.  Each call is a
-``ctpvae.request`` span (``utils/trace.py``) around its stages' spans, and
-``timing`` holds the lengths of its ``ctpvae.setup`` and
-``ctpvae.infer.batch`` spans.
+(infer.py:47-152).  The request's outputs stay on the device until it
+ends: a batch's moments accumulate over its passes in float32, its float64
+finish (mean, clamped variance, std, as the reference's host arrays do)
+runs there too, and the batch's rows of the mean, std and sample and its
+loss are written into one float32 device buffer.  The batch loop never
+waits for the card; after it, one synchronize (``ctpvae.infer.wait``) and
+one copy of that buffer to the host, through a pinned block, into memory of
+the call's own (``ctpvae.infer.readback``).  Each call
+is a ``ctpvae.request`` span (``utils/trace.py``) around its stages' spans,
+and ``timing`` holds the lengths of its ``ctpvae.setup`` and
+``ctpvae.infer.batch`` spans; on a card a batch's span is the host's time
+to enqueue its passes, not the card's time to run them.
 
 Outputs under ``output_path``:
   reconstruction_mean.npy    (N, x, y, 1)  E[R] over passes x ELBO samples
@@ -69,8 +76,9 @@ def amortized_infer(
 ) -> dict:
     """Reconstruct new sinograms with the model trained at ``run_path``.
 
-    Returns {"mean", "std", "sample", "loss"} as host arrays, plus "timing",
-    and writes the artifacts when ``output_path`` is set.  ``overrides``
+    Returns {"mean", "std", "sample", "loss"} as host arrays (views of one
+    host array made by this call's readback), plus "timing", and writes the
+    artifacts when ``output_path`` is set.  ``overrides``
     patches config fields for the new data (``real_data``,
     ``poisson_noise_multiplier``, ``cheap_init``).  Runs on ``device`` (CUDA
     unless the CPU is named) in exact float32.  ``sampler`` supplies the
@@ -107,17 +115,21 @@ def amortized_infer(
         b = cfg.batch_size
         num_batches = -(-n // b)
         latent_shapes, out_shape = server.draw_shapes(b)
+        maps = (n, server.x_size, server.y_size)
+        size = n * server.x_size * server.y_size
         with span("ctpvae.infer.accumulators"):
-            mean_acc = np.zeros((n, server.x_size, server.y_size), np.float64)
-            sq_acc = np.zeros_like(mean_acc)
-            sample = np.zeros((n, server.x_size, server.y_size), np.float32)
-            losses = np.zeros(num_batches, np.float64)
+            # mean, std, sample and the per-batch losses, read back as one copy
+            outputs = torch.empty(3 * size + num_batches, dtype=torch.float32, device=dev)
+            mean, std, sample = outputs[: 3 * size].view(3, *maps)
+            losses = outputs[3 * size :]
+            # a device divisor: CUDA multiplies by the reciprocal of a host scalar
+            passes = torch.full((), float(num_passes), dtype=torch.float64, device=dev)
         for bi in range(num_batches):
             with span("ctpvae.infer.batch") as batch:
                 # tail batch: clamp indices to n-1 and slice the duplicates off below
-                idx = np.minimum(np.arange(bi * b, (bi + 1) * b), n - 1)
-                take = min(b, n - bi * b)
-                bidx = torch.as_tensor(idx, device=dev)
+                bidx = torch.arange(bi * b, (bi + 1) * b, device=dev).clamp_(max=n - 1)
+                rows = slice(bi * b, min((bi + 1) * b, n))
+                take = rows.stop - rows.start
                 ma = torch.zeros((b, server.x_size, server.y_size), device=dev)
                 sa = torch.zeros_like(ma)
                 loss_p = []
@@ -131,25 +143,33 @@ def amortized_infer(
                         if p == 0:
                             samp = aux.recon_sample
                         loss_p.append(loss)
-                with span("ctpvae.infer.wait"):  # the passes still queued on the card
-                    if dev.type == "cuda":
-                        torch.cuda.synchronize(dev)
-                with span("ctpvae.infer.readback"):
-                    mean_acc[bi * b : bi * b + take] += ma.cpu().numpy()[:take]
-                    sq_acc[bi * b : bi * b + take] += sa.cpu().numpy()[:take]
-                    losses[bi] = float(torch.stack(loss_p).mean())
-                    sample[bi * b : bi * b + take] = samp.cpu().numpy()[:take]
+                m64 = ma[:take].double() / passes
+                var = (sa[:take].double() / passes - m64 * m64).clamp_(min=0.0)
+                mean[rows] = m64
+                std[rows] = var.sqrt_()
+                sample[rows] = samp[:take]
+                losses[bi] = torch.stack(loss_p).mean()
             batch_s.append(batch.seconds)
+        with span("ctpvae.infer.wait"):  # the passes still queued on the card
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        with span("ctpvae.infer.readback"):
+            # A copy from the card into fresh pageable memory faults its
+            # pages in one at a time; a pinned block of PyTorch's host
+            # allocator (cached from the second request on) takes the copy
+            # at full speed, and the copy out of it faults the fresh pages
+            # on all of PyTorch's CPU threads.
+            staged = torch.empty(outputs.shape, dtype=outputs.dtype, pin_memory=dev.type == "cuda")
+            staged.copy_(outputs)
+            host = torch.empty(outputs.shape, dtype=outputs.dtype).copy_(staged).numpy()
 
         with span("ctpvae.infer.finish"):
-            mean = (mean_acc / num_passes).astype(np.float32)
-            var = np.maximum(sq_acc / num_passes - (mean_acc / num_passes) ** 2, 0.0)
-            std = np.sqrt(var).astype(np.float32)
+            mean_h, std_h, sample_h = host[: 3 * size].reshape(3, *maps, 1)
             out = {
-                "mean": mean[..., None],
-                "std": std[..., None],
-                "sample": sample[..., None],
-                "loss": losses.astype(np.float32),
+                "mean": mean_h,
+                "std": std_h,
+                "sample": sample_h,
+                "loss": host[3 * size :],
                 "timing": {"setup_s": setup.seconds, "batch_s": batch_s, "batch_size": b},
             }
         if output_path:

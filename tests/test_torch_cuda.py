@@ -692,3 +692,55 @@ def test_kernel_c_at_the_fidelity_batch(cuda):
     padded = pad_phantom(torch.as_tensor(imgs, device=cuda), 184)
     want = jr.radon_fused_plain(padded, jr.static_table(tuple(float(t) for t in _THETA), 184, 184, cuda), 184)
     _close(torch.as_tensor(out, device=cuda), want.clamp_min(0.0))
+
+
+def _inside(events, spans):
+    """The events that lie inside one of the Chrome trace spans ``spans``."""
+    return [e for e in events if any(float(s["ts"]) <= float(e["ts"])
+                                     and float(e["ts"]) + float(e.get("dur", 0))
+                                     <= float(s["ts"]) + float(s["dur"]) for s in spans)]
+
+
+def test_serve_request_waits_for_the_card_once(cuda, tmp_path, monkeypatch):
+    """``amortized_infer`` on the card (the step run's weights, kernel A in
+    the eval passes, 6 scans in batches of 4, 8 passes): under the profiler
+    no CUDA synchronisation or synchronous copy falls inside a batch's span;
+    the request holds one wait and one readback; its outputs equal, bitwise,
+    the float64 host finish of its passes' maps."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import _torch_infer_finish as finish
+    from ct_pvae_tpu_torch.utils import trace
+    from ct_pvae_tpu_torch.vi.infer import amortized_infer
+
+    run = tmp_path / "run"
+    tr = _step_trainer(cuda, save_path=str(run))
+    assert tr.joseph
+    tr.checkpoint()
+    sinos = np.random.default_rng(3).uniform(0, 5, (6, 24, 64)).astype(np.float32)
+    kw = dict(sinograms=sinos, theta=_STEP_THETA, num_passes=8, seed=5, device=cuda,
+              overrides={"cheap_init": True})
+    amortized_infer(str(run), None, **kw)  # builds, cuDNN's plans, the allocator's blocks
+    passes = finish.record_passes(monkeypatch)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = amortized_infer(str(run), None, **kw)
+    names = [s.name for s in trace.spans()]
+    assert names.count("ctpvae.infer.batch") == 2 and names.count("ctpvae.infer.pass") == 16
+    assert names.count("ctpvae.infer.wait") == names.count("ctpvae.infer.readback") == 1
+    finish.assert_bitwise(out, finish.host_finish(passes, 6, 4, 8))
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = {n: [e for e in events if e.get("cat") == "user_annotation" and e["name"] == n]
+             for n in ("ctpvae.infer.batch", "ctpvae.infer.wait")}
+    runtime = [e for e in events if e.get("cat", "").startswith("cuda_")]  # the API's calls
+    waits = [e for e in runtime if "Synchronize" in e["name"] or e["name"] == "cudaMemcpy"]
+    # control: the trace holds the runtime's calls, the wait's synchronize among them
+    assert any(e["name"] == "cudaLaunchKernel" for e in _inside(runtime, spans["ctpvae.infer.batch"]))
+    assert _inside(waits, spans["ctpvae.infer.wait"])
+    assert _inside(waits, spans["ctpvae.infer.batch"]) == []

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_infer_finish as finish
 from _torch_parity import JaxReplaySampler
 from ct_pvae_tpu.config import Config as JaxConfig
 from ct_pvae_tpu.vi.infer import amortized_infer as jax_amortized_infer
@@ -122,6 +123,28 @@ def test_default_draws_come_from_the_steps_generator(tmp_path):
                            sampler=lambda *_: GeneratorDraws(gen, torch.device("cpu")))
     for k in ("mean", "std", "sample", "loss"):
         np.testing.assert_array_equal(out[k], want[k], err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def run_dir(tmp_path_factory):
+    sinos, theta = _data()
+    run = tmp_path_factory.mktemp("finish") / "run"
+    _trained_run(run, sinos, theta)
+    return run, sinos, theta
+
+
+@pytest.mark.parametrize("num_passes", [1, 2, 8])
+def test_outputs_are_the_float64_finish_of_the_passes(run_dir, monkeypatch, num_passes):
+    """The moments, the float64 finish and the losses made on the device
+    equal, bitwise, the host finish of each pass's maps (N % BATCH != 0: a
+    tail batch); the outputs keep their dtypes and shapes."""
+    run, sinos, theta = run_dir
+    passes = finish.record_passes(monkeypatch)
+    out = amortized_infer(str(run), None, sinograms=sinos, theta=theta, num_passes=num_passes,
+                          overrides=OVERRIDES, seed=3, device="cpu")
+    assert N % BATCH and len(passes) == -(-N // BATCH) * num_passes
+    finish.assert_bitwise(out, finish.host_finish(passes, N, BATCH, num_passes))
+    assert out["mean"].shape == (N, 31, 31, 1) and out["loss"].shape == (-(-N // BATCH),)
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch, tmp_path):

@@ -32,8 +32,8 @@ PARENT = {
     "ctpvae.infer.accumulators": "ctpvae.request",
     "ctpvae.infer.batch": "ctpvae.request",
     "ctpvae.infer.pass": "ctpvae.infer.batch",
-    "ctpvae.infer.wait": "ctpvae.infer.batch",
-    "ctpvae.infer.readback": "ctpvae.infer.batch",
+    "ctpvae.infer.wait": "ctpvae.request",
+    "ctpvae.infer.readback": "ctpvae.request",
     "ctpvae.infer.finish": "ctpvae.request",
     "ctpvae.train.chunk": None,
     "ctpvae.train.stage": "ctpvae.train.chunk",
@@ -140,8 +140,15 @@ def test_request_spans_nest_each_inside_one_request(run_dir):
     assert Counter(k[0] for k in inside) == {0: len(spans) // 2, 1: len(spans) // 2}
     batches = -(-infer_case.N // infer_case.BATCH)
     count = Counter(s.name for s in spans)
-    assert (count["ctpvae.infer.batch"] == count["ctpvae.infer.wait"]
-            == count["ctpvae.infer.readback"] == 2 * batches)
+    assert count["ctpvae.infer.batch"] == 2 * batches
+    # one wait for the card and one readback a request, after its batches
+    assert count["ctpvae.infer.wait"] == count["ctpvae.infer.readback"] == 2
+    for k in range(2):
+        mine = [s for s, i in zip(spans, inside) if i == [k]]
+        (wait,) = [s for s in mine if s.name == "ctpvae.infer.wait"]
+        (readback,) = [s for s in mine if s.name == "ctpvae.infer.readback"]
+        last = max(s.end_ns for s in mine if s.name == "ctpvae.infer.batch")
+        assert last <= wait.start_ns <= wait.end_ns <= readback.start_ns
     assert count["ctpvae.infer.pass"] == 2 * batches * infer_case.PASSES
     assert all(count[s] == 2 for s in SETUP_STAGES)
     assert np.isfinite(outs[0]["mean"]).all()
